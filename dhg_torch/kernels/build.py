@@ -1,0 +1,99 @@
+"""Build the port's CUDA kernels with nvcc and bind them through ctypes.
+
+The sources under csrc/ have a plain C interface (no PyTorch headers), so a
+build takes seconds. The shared library goes to kernels/_build/ (listed in
+.gitignore), named by a hash of the sources and flags: a checkout builds it
+at first use and reuses it afterwards. No built library is committed.
+
+    python -m dhg_torch.kernels.build     # build now, print the library path
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, else PATH, else the toolkit's default prefix."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(Path(on_path))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdhg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into one shared library unless it already exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs = [str(s) for s in _sources() if s.suffix == ".cu"]
+    # Write to a temporary name, then rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *srcs]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        if verbose:
+            print(res.stderr, end="")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build if needed and load the library, with every C signature declared."""
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dhg_workspace_elems.argtypes = [i, i, i]
+    lib.dhg_workspace_elems.restype = ctypes.c_longlong
+    lib.dhg_error_string.argtypes = [i]
+    lib.dhg_error_string.restype = ctypes.c_char_p
+    lib.dhg_fused_encoder_layer.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.dhg_fused_encoder_layer.restype = i
+    lib.dhg_fused_bottleneck.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
+    lib.dhg_fused_bottleneck.restype = i
+    return lib
+
+
+if __name__ == "__main__":
+    print(build(verbose=True))

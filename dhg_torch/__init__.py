@@ -2,13 +2,15 @@
 
 The layout mirrors `dhg/` so each module has an obvious counterpart:
 
-  dhg_torch.core       — noise schedule and reverse-diffusion step rules
+  dhg_torch.core       — noise schedule, reverse-diffusion step rules, losses
   dhg_torch.ops        — LayerNorm, FiLM affines, FFN, attention, k3 convs
   dhg_torch.models     — text-style encoder, encoder layer, denoiser U-Net
   dhg_torch.kernels    — hand-written CUDA kernels (sm_90a) beside their
                          plain PyTorch versions
-  dhg_torch.data       — the 73-id character tokenizer
+  dhg_torch.data       — the 73-id character tokenizer, training batches
   dhg_torch.inference  — generate / sample_lines (the line sampler)
+  dhg_torch.train      — the trainer and its CLI (with config, checkpoint,
+                         eval and utils.experiment)
   dhg_torch.weights    — dhg params / exported .pth -> the port's state_dict
 
 Activations stay channel-last [B, T, C] as in dhg. Entry points default to

@@ -6,6 +6,7 @@
   * get_alpha_set(beta) == cumprod(1 - beta)
   * strided_beta_set: n_steps kept levels, indices picked in float64 on the host
   * halve_beta_set / halved_beta_set: progressive-distillation 2-for-1 grids
+  * sample_alphas: the training step's continuous alpha_bar draws
 """
 
 from __future__ import annotations
@@ -79,3 +80,21 @@ def halved_beta_set(n_steps: int, base: torch.Tensor | None = None) -> torch.Ten
     if beta.shape[0] != n_steps:
         raise ValueError(f"halving overshot: wanted {n_steps}, hit {beta.shape[0]}")
     return beta
+
+
+def alphas_from_draws(idx: torch.Tensor, u: torch.Tensor, alpha_set: torch.Tensor) -> torch.Tensor:
+    """alpha_bar between alpha_set[idx] and alpha_set[idx + 1] at fraction u:
+    the arithmetic of dhg's sample_alphas on pre-drawn idx, u ([B, 1])."""
+    lower = alpha_set[idx]
+    upper = alpha_set[idx + 1]
+    return u * (upper - lower) + lower
+
+
+def sample_alphas(generator: torch.Generator, batch_size: int, alpha_set: torch.Tensor
+                  ) -> torch.Tensor:
+    """[B, 1] alpha_bar values: a random adjacent pair of levels per sample,
+    then uniform between them. Draws from `generator` (on alpha_set's device)."""
+    dev = alpha_set.device
+    idx = torch.randint(0, alpha_set.shape[0] - 1, (batch_size, 1), generator=generator, device=dev)
+    u = torch.rand((batch_size, 1), generator=generator, device=dev)
+    return alphas_from_draws(idx, u, alpha_set)

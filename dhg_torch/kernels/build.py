@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
 The sources under csrc/ have a plain C interface (no PyTorch headers), so a
-build takes seconds. The shared library goes to kernels/_build/ (listed in
-.gitignore), named by a hash of the sources and flags: a checkout builds it
-at first use and reuses it afterwards. No built library is committed.
+build takes seconds: one nvcc per source, all started together, then one
+link. The shared library goes to kernels/_build/ (listed in .gitignore),
+named by a hash of the sources and flags: a checkout builds it at first use
+and reuses it afterwards. No built library is committed.
 
     python -m dhg_torch.kernels.build     # build now, print the library path
 """
@@ -20,10 +21,11 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
+MAX_SMEM = 232448  # bytes of shared memory one block may use on an H100
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -54,28 +56,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdhg_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> list[str]:
+    """Wait for every (Popen, what) pair; raise on the first failure."""
+    errs = []
+    for proc, what in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n{err}")
+        errs.append(err)
+    return errs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into one shared library unless it already exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    srcs = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # Write to a temporary name, then rename: a concurrent or interrupted
+    nvcc = find_nvcc()
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    # Write to temporary names, then rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *srcs]
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        objs = [tmp / f"{s.stem}.o" for s in srcs]
+        procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o), str(s)],
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                  s.name) for s, o in zip(srcs, objs)]
+        logs = _run(procs)
+        lib = tmp / out.name
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+        logs += _run([(subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True), "link")])
         if verbose:
-            print(res.stderr, end="")
-        os.replace(tmp, out)
+            print("".join(logs), end="")
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -92,7 +110,17 @@ def load() -> ctypes.CDLL:
     lib.dhg_fused_encoder_layer.restype = i
     lib.dhg_fused_bottleneck.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
     lib.dhg_fused_bottleneck.restype = i
+    lib.dhg_fused_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dhg_fused_attention.restype = i
+    lib.dhg_fused_conv_block.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.dhg_fused_conv_block.restype = i
     return lib
+
+
+def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}: {lib.dhg_error_string(rc).decode()}")
 
 
 if __name__ == "__main__":

@@ -158,11 +158,6 @@ def _forward_only(tensors) -> None:
         raise RuntimeError("dhg_torch kernels are forward-only; run under torch.no_grad()")
 
 
-def _raise_on(rc: int, lib, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}: {lib.dhg_error_string(rc).decode()}")
-
-
 def _ptrs(ops) -> ctypes.Array:
     return (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
 
@@ -179,7 +174,7 @@ def fused_encoder_layer(x, pe, neg, layer_ops: Sequence[torch.Tensor], num_heads
     if x.device.type == "cpu":
         return encoder_layer_plain(x, pe, neg, layer_ops, num_heads)
     _forward_only([x, pe, neg, *layer_ops])
-    from dhg_torch.kernels.build import load
+    from dhg_torch.kernels.build import check_rc, load
 
     lib = load()
     ws = torch.empty(b * lib.dhg_workspace_elems(t, d, l), dtype=BF16, device=x.device)
@@ -189,7 +184,7 @@ def fused_encoder_layer(x, pe, neg, layer_ops: Sequence[torch.Tensor], num_heads
         x.data_ptr(), pe.data_ptr(), neg.data_ptr(), ptrs, out.data_ptr(), ws.data_ptr(),
         b, t, d, num_heads, l, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _raise_on(rc, lib, "fused_encoder_layer")
+    check_rc(lib, rc, "fused_encoder_layer")
     launches["fused_encoder_layer"] += 1
     return out
 
@@ -212,7 +207,7 @@ def fused_bottleneck(x, att_w, att_b, pe, neg, layer_ops: Sequence[torch.Tensor]
     if x.device.type == "cpu":
         return bottleneck_plain(x, att_w, att_b, pe, neg, layer_ops, num_layers, num_heads)
     _forward_only([x, att_w, att_b, pe, neg, *layer_ops])
-    from dhg_torch.kernels.build import load
+    from dhg_torch.kernels.build import check_rc, load
 
     lib = load()
     ws = torch.empty(b * lib.dhg_workspace_elems(t, d, l), dtype=BF16, device=x.device)
@@ -223,6 +218,6 @@ def fused_bottleneck(x, att_w, att_b, pe, neg, layer_ops: Sequence[torch.Tensor]
         num_layers, out.data_ptr(), ws.data_ptr(), b, t, cin, d, num_heads, l,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _raise_on(rc, lib, "fused_bottleneck")
+    check_rc(lib, rc, "fused_bottleneck")
     launches["fused_bottleneck"] += 1
     return out

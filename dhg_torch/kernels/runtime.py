@@ -1,4 +1,5 @@
-"""Kernel selection (port of dhg/kernels/runtime.py::fused_bottleneck_mode).
+"""Kernel selection (port of dhg/kernels/runtime.py), with CUDA in place of
+the TPU.
 
 DHG_FUSED_BOTTLENECK gates both sampler kernels, fused_bottleneck and
 fused_encoder_layer:
@@ -7,6 +8,11 @@ fused_encoder_layer:
   * "1": on for any shape and device — on the CPU the wrappers then run
     their plain PyTorch versions, which is how the tests drive this path;
   * "0": off.
+DHG_FUSED_ATTENTION and DHG_FUSED_CONVBLOCK gate the train-path kernels,
+default "0" as in dhg. "1" routes every attention (ConvBlock) through its
+kernel on CUDA tensors and through the kernel's plain version on CPU
+tensors; the backward of both recomputes the plain math, so the flags are
+safe for the sampler and the train step alike.
 dhg's `rows` packing and DHG_SDPA_BATCHED are TPU lowering choices with
 identical output; they have no counterpart here.
 """
@@ -26,3 +32,17 @@ def fused_bottleneck_mode(device: torch.device) -> str:
     if v == "1":
         return "on"
     return "auto" if torch.device(device).type == "cuda" else "off"
+
+
+def _flag_on(name: str, device: torch.device) -> bool:
+    return os.environ.get(name, "0") == "1" and torch.device(device).type in ("cpu", "cuda")
+
+
+def use_fused_attention(device: torch.device) -> bool:
+    """Route attention on `device` through kernels/fused_attention.py."""
+    return _flag_on("DHG_FUSED_ATTENTION", device)
+
+
+def use_fused_conv_block(device: torch.device) -> bool:
+    """Route ConvBlocks on `device` through kernels/fused_conv_block.py."""
+    return _flag_on("DHG_FUSED_CONVBLOCK", device)

@@ -8,10 +8,14 @@ dhg/models/denoiser.py), channel-last [B, T, C]:
   up + skip_conv3(h3) -> dec3; up + skip_conv2(h2) -> dec2; up + skip_conv1(h1) -> dec1
   heads: Dense(c1 -> 2) noise, Dense(c1 -> 1) + sigmoid pen lifts, both float32
 
-Parameters are float32; `dtype=torch.bfloat16` is the sampler's compute
-type. With precomputed kvs/films in bf16 (the sampler's context) the
-bottleneck and enc3/enc5 go through the hand-written kernels under the same
-gates as dhg, with CUDA in place of the TPU (kernels/runtime.py).
+Parameters are float32; `dtype=torch.bfloat16` is the compute type of the
+sampler and of the training config. With precomputed kvs/films in bf16 (the
+sampler's context) the bottleneck and enc3/enc5 go through the hand-written
+kernels under the same gates as dhg, with CUDA in place of the TPU
+(kernels/runtime.py); under train() with live dropout they stay off. The
+training forward is `forward` under train(): dropout (drop_rate and the
+style dropout 0.3) is live, and attention and ConvBlocks take their kernels
+when DHG_FUSED_ATTENTION / DHG_FUSED_CONVBLOCK are set.
 """
 
 from __future__ import annotations
@@ -70,21 +74,22 @@ class DiffusionModel(nn.Module):
         self.sigma_ffn = FFN(1, 2048, sd, dtype)
         self.text_style_model = TextStyleEncoder(d, c2 * 4, sd, dtype)
         self.input_dense = Linear(2, c1)
-        self.enc1 = ConvBlock(c1, c1, sd, dtype)
-        self.enc2 = ConvBlock(c1, c2, sd, dtype)
-        self.enc3 = EncoderLayer(c2, 3, d, sd, pos_factor=4.0, dtype=dtype)
-        self.enc4 = ConvBlock(c2, c3, sd, dtype)
-        self.enc5 = EncoderLayer(c3, 4, d, sd, pos_factor=2.0, dtype=dtype)
+        dr = drop_rate
+        self.enc1 = ConvBlock(c1, c1, sd, dtype, dr)
+        self.enc2 = ConvBlock(c1, c2, sd, dtype, dr)
+        self.enc3 = EncoderLayer(c2, 3, d, sd, pos_factor=4.0, dtype=dtype, drop_rate=dr)
+        self.enc4 = ConvBlock(c2, c3, sd, dtype, dr)
+        self.enc5 = EncoderLayer(c3, 4, d, sd, pos_factor=2.0, dtype=dtype, drop_rate=dr)
         self.att_dense = Linear(c3, d)
         self.att_layers = nn.ModuleList(
-            EncoderLayer(d, 6, d, sd, dtype=dtype) for _ in range(num_layers)
+            EncoderLayer(d, 6, d, sd, dtype=dtype, drop_rate=dr) for _ in range(num_layers)
         )
         self.skip_conv1 = Conv3(c1, c2)
         self.skip_conv2 = Conv3(c2, c3)
         self.skip_conv3 = Conv3(c3, d)
-        self.dec3 = ConvBlock(d, c3, sd, dtype)
-        self.dec2 = ConvBlock(c3, c2, sd, dtype)
-        self.dec1 = ConvBlock(c2, c1, sd, dtype)
+        self.dec3 = ConvBlock(d, c3, sd, dtype, dr)
+        self.dec2 = ConvBlock(c3, c2, sd, dtype, dr)
+        self.dec1 = ConvBlock(c2, c1, sd, dtype, dr)
         self.output_dense = Linear(c1, 2)
         self.pen_lifts_dense = nn.Sequential(Linear(c1, 1), nn.Sigmoid())
 
@@ -123,7 +128,7 @@ class DiffusionModel(nn.Module):
     def _can_fuse_bottleneck(self, kvs, films, device) -> bool:
         """The kernels apply on the sampler path only: bf16 compute,
         precomputed kvs + films with the batch-1 FiLM broadcast, no active
-        dropout (the port runs in eval). "auto" also requires d = 384."""
+        dropout. "auto" also requires d = 384."""
         mode = fused_bottleneck_mode(device)
         if mode == "off" or (mode == "auto" and self.c2 * 2 != 384):
             return False
@@ -132,6 +137,7 @@ class DiffusionModel(nn.Module):
             and kvs is not None
             and films is not None
             and self.dtype == BF16
+            and (self.drop_rate == 0.0 or not self.training)
             and films["attn"][0][0][0].shape[0] == 1
         )
 
@@ -229,12 +235,14 @@ class DiffusionModel(nn.Module):
         return model.to(dev).eval()
 
     @staticmethod
-    def load(path, dtype=None, device="cuda"):
-        """A model from the `{meta, state_dict}` .pth that dhg exports."""
+    def load(path, dtype=None, use_ema=True, device="cuda"):
+        """A model from a `{meta, state_dict}` .pth: dhg's export, or the
+        port's own `model_final` / `checkpoint_<N>` (its EMA weights when it
+        carries them and use_ema)."""
         from dhg_torch.weights import config_from_state_dict, load_checkpoint
 
         dev = resolve_device(device)
-        _, sd = load_checkpoint(path)
+        _, sd = load_checkpoint(path, use_ema=use_ema)
         cfg = config_from_state_dict(sd)
         model = DiffusionModel(cfg["att_layers_num"], cfg["channels"], cfg["channels"] * 3 // 2,
                                cfg["channels"] * 2, dtype=dtype)

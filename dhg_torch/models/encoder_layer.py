@@ -3,7 +3,8 @@ self-attention (port of dhg/models/encoder_layer.py).
 
 `text_kv` is the x_t-independent half (text projection, LN, affine0, PE,
 the cross-attention K/V heads); `attend` is the x_t-dependent half. PE goes
-on Q and K only: V carries no position.
+on Q and K only: V carries no position. Dropout (the model's drop_rate) acts
+on the three sublayer outputs under train(), as in dhg.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dhg_torch.ops.attention import MultiHeadAttention, pos_embeddings
-from dhg_torch.ops.basic import FFN, AffineTransformLayer, Linear, layer_norm
+from dhg_torch.ops.basic import FFN, AffineTransformLayer, Linear, dropout, layer_norm
 
 
 class EncoderLayer(nn.Module):
@@ -25,6 +26,7 @@ class EncoderLayer(nn.Module):
         sigma_dim: int,
         pos_factor: float = 1.0,
         dtype=None,
+        drop_rate: float = 0.0,
     ):
         super().__init__()
         self.d_out, self.num_heads, self.pos_factor, self.dtype = d_out, num_heads, pos_factor, dtype
@@ -34,6 +36,7 @@ class EncoderLayer(nn.Module):
         self.mha2 = MultiHeadAttention(d_out, num_heads, dtype)
         for i in range(4):
             self.add_module(f"affine{i}", AffineTransformLayer(sigma_dim, d_out, dtype))
+        self.drop = nn.Dropout(drop_rate)
 
     def text_kv(self, text: torch.Tensor, sigma_emb: torch.Tensor):
         """Conditioning memory [B, L, d_inp] -> cross-attention (K, V) [B,H,L,hd]."""
@@ -61,13 +64,13 @@ class EncoderLayer(nn.Module):
         pe = pos_embeddings(x.shape[1], self.d_out, self.pos_factor, x.dtype, x.device)
 
         x2 = self.mha.attend_kv(x + pe, kh, vh, text_mask)
-        x2 = film(layer_norm(x2, dt), c1) + x
+        x2 = film(layer_norm(dropout(self.drop, x2), dt), c1) + x
 
         x2_pe = x2 + pe
         x3 = self.mha2(x2_pe, x2_pe, x2)
-        x3 = film(layer_norm(x2 + x3, dt), c2)
+        x3 = film(layer_norm(x2 + dropout(self.drop, x3), dt), c2)
 
-        x4 = self.ffn(x3) + x3
+        x4 = dropout(self.drop, self.ffn(x3)) + x3
         return film(layer_norm(x4, dt), c3)
 
     def forward(self, x, text, sigma_emb, text_mask) -> torch.Tensor:

@@ -4,7 +4,11 @@ dhg/ops/attention.py).
   * pos_embeddings: freq = exp(arange(half) * -ln(10000)/(half-1)), phase
     scaled by pos_factor, concat(sin, cos), computed in float32 then cast;
   * SDPA: additive mask * -1e9 (1.0 flags a padded key), softmax in float32,
-    logits divided by sqrt(depth) in the compute dtype, heads BHTD.
+    logits divided by sqrt(depth) in the compute dtype, heads BHTD
+    (`sdpa_math`, dhg's _sdpa_jnp). With DHG_FUSED_ATTENTION=1, `sdpa` runs
+    the forward through kernels/fused_attention.py and the backward through
+    `sdpa_math`, as dhg's _sdpa_fused custom_vjp does; the kernel keeps the
+    logits in float32, so in bf16 the two forwards agree at the bf16 bar.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import math
 import torch
 from torch import nn
 
+from dhg_torch.kernels.fused_attention import FusedAttention
+from dhg_torch.kernels.runtime import use_fused_attention
 from dhg_torch.ops.basic import Linear
 
 
@@ -37,6 +43,13 @@ def pos_embeddings(
 
 def sdpa(q, k, v, mask=None):
     """softmax(q k^T / sqrt(d) + mask * -1e9) v over [B, H, T, D] tensors."""
+    if use_fused_attention(q.device):
+        return FusedAttention.apply(q, k, v, mask)
+    return sdpa_math(q, k, v, mask)
+
+
+def sdpa_math(q, k, v, mask=None):
+    """The plain path (dhg's _sdpa_jnp); also the fused path's backward."""
     # sqrt(depth) rounded to the compute dtype, as jnp.sqrt(asarray(depth, dtype)),
     # made on the host: a device scalar would cost a copy per call.
     denom = torch.tensor(float(q.shape[-1])).sqrt().to(q.dtype).item()

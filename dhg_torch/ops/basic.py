@@ -95,6 +95,12 @@ class FFN(nn.Sequential):
         return self[3](F.silu(x), self.dtype)
 
 
+def dropout(drop: nn.Dropout, x: torch.Tensor) -> torch.Tensor:
+    """drop(x) under train() with p > 0, else x without the module call: the
+    sampler runs these layers thousands of times a call, in eval."""
+    return drop(x) if drop.training and drop.p else x
+
+
 def create_padding_mask(tokens: torch.Tensor) -> torch.Tensor:
     """[B, L] ids -> [B, 1, 1, L] float32, 1.0 at padding (id 0)."""
     return (tokens == 0).to(torch.float32)[:, None, None, :]

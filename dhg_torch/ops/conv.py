@@ -5,8 +5,10 @@ The k3 'same' conv runs as ONE product [B, T, 3*Cin] @ [3*Cin, Co] of the
 three shifted copies of x, so bf16 rounds once, as XLA's conv does, and the
 f32 path does not go through cuDNN (whose f32 convs default to TF32).
 ConvBlock keeps the reference's wiring (dhg's single-dilation quirk: every
-block on this path has dilation 1). Dropout is the identity: the port runs
-in eval only.
+block on this path has dilation 1); its dropout is live under train(). With
+DHG_FUSED_CONVBLOCK=1 it runs through kernels/fused_conv_block.py under
+dhg's gate (dilation 1, and no dropout or eval mode): the forward in f32
+whatever the compute dtype, the backward through the plain f32 math.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dhg_torch.ops.basic import AffineTransformLayer, CastCache, Linear
+from dhg_torch.kernels.fused_conv_block import ConvBlockFn
+from dhg_torch.kernels.runtime import use_fused_conv_block
+from dhg_torch.ops.basic import AffineTransformLayer, CastCache, Linear, dropout
 
 
 class Conv3(CastCache, nn.Conv1d):
@@ -28,6 +32,11 @@ class Conv3(CastCache, nn.Conv1d):
         # [out, in, k] -> [k*in, out]: row k*Cin + i multiplies x[t + k - 1, i].
         w = self.weight.permute(2, 1, 0).reshape(-1, self.out_channels)
         return w.to(dtype).contiguous(), self.bias.to(dtype)
+
+    def taps(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(weight [3, in, out], bias [out]) in float32: dhg's conv kernel layout."""
+        w, b = self._cached(torch.float32, self._packed)
+        return w.view(3, self.in_channels, self.out_channels), b
 
     def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
         dt = dtype or x.dtype
@@ -52,7 +61,7 @@ class ConvBlock(nn.Module):
     """skip = k3 conv(x); h = conv1(SiLU x) -> FiLM1 -> conv2(SiLU h) -> FiLM2
     -> fc(SiLU h) -> FiLM3; out = h + skip."""
 
-    def __init__(self, d_in: int, d_out: int, sigma_dim: int, dtype=None):
+    def __init__(self, d_in: int, d_out: int, sigma_dim: int, dtype=None, drop_rate=0.0):
         super().__init__()
         self.dtype = dtype
         self.conv_skip = Conv3(d_in, d_out)
@@ -62,6 +71,7 @@ class ConvBlock(nn.Module):
         self.affine1 = AffineTransformLayer(sigma_dim, d_out // 2, dtype)
         self.affine2 = AffineTransformLayer(sigma_dim, d_out, dtype)
         self.affine3 = AffineTransformLayer(sigma_dim, d_out, dtype)
+        self.drop = nn.Dropout(drop_rate)
 
     def film_coeffs(self, sigma_emb: torch.Tensor):
         """(gamma, beta) for the three affines."""
@@ -74,11 +84,22 @@ class ConvBlock(nn.Module):
     def forward(self, x, sigma_emb=None, coeffs=None) -> torch.Tensor:
         if coeffs is None:
             coeffs = self.film_coeffs(sigma_emb)
+        if use_fused_conv_block(x.device) and (self.drop.p == 0.0 or not self.training):
+            return self._fused(x, coeffs)
         c1, c2, c3 = coeffs
         film = AffineTransformLayer.apply_coeffs
         dt = self.dtype
         skip = self.conv_skip(x, dt)
-        h = film(self.conv1(F.silu(x), dt), c1)
-        h = film(self.conv2(F.silu(h), dt), c2)
-        h = film(self.fc(F.silu(h), dt), c3)
+        h = dropout(self.drop, film(self.conv1(F.silu(x), dt), c1))
+        h = dropout(self.drop, film(self.conv2(F.silu(h), dt), c2))
+        h = dropout(self.drop, film(self.fc(F.silu(h), dt), c3))
         return h + skip
+
+    def _fused(self, x, coeffs):
+        """The block through ConvBlockFn: weights in dhg's layout, packed
+        inside the autograd graph so their gradients reach the modules."""
+        films = [c.float() for pair in coeffs for c in pair]
+        return ConvBlockFn.apply(
+            x.contiguous(), *self.conv_skip.taps(), *self.conv1.taps(), *self.conv2.taps(),
+            self.fc.weight.t().contiguous(), self.fc.bias, *films,
+        )

@@ -100,13 +100,16 @@ def state_dict_from_dhg(params: dict) -> "OrderedDict[str, torch.Tensor]":
     return out
 
 
-def load_checkpoint(path: str | Path) -> tuple[dict, "OrderedDict[str, torch.Tensor]"]:
-    """(meta, state_dict) from the `{meta, state_dict}` .pth that dhg's
-    exporter writes."""
+def load_checkpoint(path: str | Path, use_ema: bool = False
+                    ) -> tuple[dict, "OrderedDict[str, torch.Tensor]"]:
+    """(meta, state_dict) from a `{meta, state_dict}` .pth: the one dhg's
+    exporter writes, or a checkpoint of the port's trainer. use_ema picks
+    the EMA weights (`ema_state_dict`) where the file carries them."""
     obj = torch.load(Path(path), map_location="cpu", weights_only=True)
     if not (isinstance(obj, dict) and "state_dict" in obj):
         raise ValueError(f"{path}: not a {{meta, state_dict}} checkpoint")
-    return dict(obj.get("meta") or {}), OrderedDict(obj["state_dict"])
+    key = "ema_state_dict" if use_ema and obj.get("ema_state_dict") is not None else "state_dict"
+    return dict(obj.get("meta") or {}), OrderedDict(obj[key])
 
 
 def config_from_state_dict(sd: dict) -> dict:

@@ -12,6 +12,8 @@ import torch
 from dhg_torch import resolve_device
 from dhg_torch.inference import generate, sample_lines
 from dhg_torch.models.denoiser import DiffusionModel
+from dhg_torch.config import DLConfig
+from dhg_torch.train import Trainer, main
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "dhg_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -55,6 +57,15 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
         generate(model, text, style, seq_len=16, n_steps=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sample_lines(model, ["hi"], style, n_steps=2)
+    cfg = DLConfig({"experiment": {"work_dir": str(tmp_path / "runs")}, "dataset_args": {},
+                    "optimizer": {"type": "torch.optim.Adam"},
+                    "training_args": {"channels": 16, "att_layers_num": 1, "batch_size": 2,
+                                      "warmup_steps": 10, "dataset": "synthetic"}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(cfg)
+    assert not (tmp_path / "runs").exists()  # refused before it made a run dir
 
 
 def test_cpu_path_runs_when_asked():

@@ -19,11 +19,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  the plain backward. Times from CUDA events.
   4. denoise   — one full-width bf16 denoise with the kernels against the
                  port's plain module path (kernels off), same bar
+  4b. T4       — fused_unet_t4 against unet_t4_plain at batch 96 and 1
+                 (operands from the canonical model's t4_operands, [B, 98,
+                 192] -> [B, 98, 256]), same bar, CUDA events over 20
+                 launches beside the bound; then one full-width bf16
+                 denoise with DHG_FUSED_T4=1 (one T4 launch, no other
+                 sampler kernel) against the plain module path, same bar
   5. generate  — the sampler: sample_lines -> generate, full width, bf16,
                  60 steps, mode "new", seq_len 392, at batch 96 and batch 1.
                  Launch counts zeroed just before each run and read just
                  after: 60 bottleneck + 120 encoder-layer launches at batch 96,
-                 60 + 0 at batch 1; output finite, [B, 392, 3]
+                 60 + 0 at batch 1, no T4 launch; output finite, [B, 392, 3].
+                 Then the same with DHG_FUSED_T4=1: 60 fused_unet_t4
+                 launches and none of the other two, at batch 96 and 1
   6. timings   — denoise steps/s at batch 256 and p50 line latency at batch 1
   7. train     — the training path: dhg_torch.train.main from a config dict
                  (tools/profile_train.py::best_config, configs/best.yml's model
@@ -34,6 +42,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  conv-block launches a step, none of the sampler kernels;
                  losses finite; checkpoint_20 and model_final written;
                  model_final reloads and samples one 60-step batch of 4
+  7b. infer    — dhg_torch.inference.main on that run dir (f32, as dhg's
+                 infer): a style PNG written with the port's own writer,
+                 data/style_trunk_synth.npz, a 23-character prompt to a PNG
+                 (decoded again through dhg_torch.data.images), then
+                 --wrap=12 to an SVG; strokes finite, no kernel launched
   8. train rate — train_steps_per_sec_batch96 with both kernels and with
                  both flags off, in turns (off, on, on, off): CUDA events
                  over 10 steps after one warm-up step
@@ -68,13 +81,16 @@ SOURCES = {
     "fused_encoder_layer": "dhg_torch/kernels/csrc/encoder_layer.cu",
     "fused_attention": "dhg_torch/kernels/csrc/attention.cu",
     "fused_conv_block": "dhg_torch/kernels/csrc/conv_block.cu",
+    "fused_unet_t4": "dhg_torch/kernels/csrc/unet_t4.cu",
 }
 REPLACES = {
     "fused_bottleneck": "dhg/kernels/fused_bottleneck.py:476",
     "fused_encoder_layer": "dhg/kernels/fused_bottleneck.py:242",
     "fused_attention": "dhg/kernels/fused_attention.py:60",
     "fused_conv_block": "dhg/kernels/fused_conv_block.py:76",
+    "fused_unet_t4": "dhg/kernels/fused_bottleneck.py:407",
 }
+INFER_PROMPT = "handwriting on the card"  # 23 characters, as the sampler phases
 TRAIN_B, TRAIN_STEPS = 96, 20  # T = 480 (tools/profile_train.py::best_config)
 # The training forward's attention calls at T = 480, L = 50: (label, H, Tq,
 # Tk, D, masked, launches a step).
@@ -216,6 +232,23 @@ def kernel_phase(model, report):
     return rows
 
 
+class env_flag:
+    """Set an environment variable inside a `with` block, then restore it."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ[self.name]
+        else:
+            os.environ[self.name] = self.old
+
+
 def denoise_phase(model, report):
     """Full-width bf16 denoise with the kernels == the plain module path."""
     from dhg_torch.kernels import fused_bottleneck as fk
@@ -229,36 +262,113 @@ def denoise_phase(model, report):
     torch.cuda.synchronize()
     if fk.launches["fused_bottleneck"] != before["fused_bottleneck"] + 1:
         fail("denoise did not take the bottleneck kernel")
-    os.environ["DHG_FUSED_BOTTLENECK"] = "0"
-    try:
+    with env_flag("DHG_FUSED_BOTTLENECK", "0"):
         eps_p, pen_p = model.denoise(x, None, None, mask, kvs=kvs, films=films)
-    finally:
-        del os.environ["DHG_FUSED_BOTTLENECK"]
     report["denoise_eps_max_abs_err"] = compare("denoise eps (kernels vs plain)", eps_k, eps_p)
     report["denoise_pen_max_abs_err"] = compare("denoise pen (kernels vs plain)", pen_k, pen_p)
 
 
-def generate_phase(model, report):
+def t4_work(b, t4, c2, c3, d, l, n_layers):
+    """FLOPs of fused_unet_t4 on b rows, every product counted as 2 m n k:
+    two ConvBlocks (three k3 convs and an fc each), skip_conv3, att_dense,
+    enc5 and the attention layers."""
+    t8 = t4 // 2
+
+    def block(cin, co):
+        return 2 * t4 * (3 * cin * co + 3 * cin * co // 2 + 3 * co // 2 * co + co * co)
+
+    per_row = block(c2, c3) + block(d, c3) + 2 * t4 * 3 * c3 * d + 2 * t8 * c3 * d
+    return (b * per_row + layer_work(b, t4, c3, l)[0]
+            + n_layers * layer_work(b, t8, d, l)[0])
+
+
+def t4_kernel_phase(model, report):
+    """fused_unet_t4 against unet_t4_plain at batch 96 and 1, operands from
+    the canonical model's t4_operands at one noise level."""
+    from dhg_torch.kernels import fused_bottleneck as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    nl, h8, h5 = model.num_layers, model.att_layers[0].num_heads, model.enc5.num_heads
+    rows = []
+    for batch in (96, 1):
+        _, text, style = make_inputs(batch, seed=30 + batch)
+        kvs, films, mask = level_context(model, text, style)
+        x4 = torch.randn(batch, SEQ_LEN // 4, model.c2, generator=gen, device="cuda")
+        ops = model.t4_operands(x4.to(torch.bfloat16), kvs, films, mask)
+        flat = [t for o in ops for t in (o if isinstance(o, list) else [o])]
+        flops = t4_work(batch, SEQ_LEN // 4, model.c2, model.c3, model.c2 * 2, TEXT_LEN, nl)
+        out_bytes = 2 * batch * x4.shape[1] * model.c3
+        bytes_ = sum(t.numel() * t.element_size() for t in flat) + out_bytes
+        row = timed_case("fused_unet_t4", f"T4 region B={batch}",
+                         lambda o=ops: fk.fused_unet_t4(*o, nl, h8, h5),
+                         lambda o=ops: fk.unet_t4_plain(*o, nl, h8, h5),
+                         roofline(flops, bytes_, H100_BF16_FLOPS))
+        log(f"    ({flops / 1e9:.4f} GFLOP, {bytes_ / 1e6:.3f} MB)")
+        rows.append(dict(row, gflop=flops / 1e9, mbytes=bytes_ / 1e6))
+    report["t4_kernel_cases"] = rows
+    return rows
+
+
+def t4_denoise_phase(model, report):
+    """Full-width bf16 denoise through fused_unet_t4 (DHG_FUSED_T4=1) == the
+    port's plain module path (every kernel flag off)."""
+    from dhg_torch.kernels import fused_bottleneck as fk
+
+    _, text, style = make_inputs(96, seed=4)
+    kvs, films, mask = level_context(model, text, style, level=20)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(96, SEQ_LEN, 2, generator=gen, device="cuda")
+    fk.reset_launch_counts()
+    with env_flag("DHG_FUSED_T4", "1"):
+        eps_k, pen_k = model.denoise(x, None, None, mask, kvs=kvs, films=films)
+    torch.cuda.synchronize()
+    if (fk.launches["fused_unet_t4"], fk.launches["fused_bottleneck"],
+            fk.launches["fused_encoder_layer"]) != (1, 0, 0):
+        fail(f"T4 denoise: launches {fk.launches}, expected one fused_unet_t4 only")
+    with env_flag("DHG_FUSED_BOTTLENECK", "0"):
+        eps_p, pen_p = model.denoise(x, None, None, mask, kvs=kvs, films=films)
+    report["t4_denoise_eps_max_abs_err"] = compare("T4 denoise eps (kernel vs plain)", eps_k, eps_p)
+    report["t4_denoise_pen_max_abs_err"] = compare("T4 denoise pen (kernel vs plain)", pen_k, pen_p)
+
+
+def sample_phase(model, label, runs, counted):
+    """sample_lines -> generate at each (batch, expected launches): counts
+    of the `counted` kernels zeroed just before each run, read just after."""
     from dhg_torch.inference import sample_lines
     from dhg_torch.kernels import fused_bottleneck as fk
 
     counts = {}
-    for batch, want in ((96, (60, 120)), (1, (60, 0))):
+    for batch, want in runs:
         prompts, _, style = make_inputs(batch, seed=10 + batch)
         gen = torch.Generator(device="cuda").manual_seed(batch)
         fk.reset_launch_counts()
         lines = sample_lines(model, prompts, style, gen, diffusion_mode="new", device="cuda")
-        got = (fk.launches["fused_bottleneck"], fk.launches["fused_encoder_layer"])
+        got = tuple(fk.launches[k] for k in counted)
         counts[batch] = got
         shapes = {a.shape for a in lines}
         finite = all(np.isfinite(a).all() for a in lines)
-        log(f"  generate B={batch}: launches bottleneck {got[0]}, encoder layer {got[1]}; "
+        log(f"  {label} B={batch}: launches {dict(zip(counted, got))}; "
             f"shapes {sorted(shapes)}; finite {finite}")
         if got != want:
-            fail(f"generate B={batch}: launches {got}, expected {want}")
+            fail(f"{label} B={batch}: launches {got}, expected {want}")
         if shapes != {(SEQ_LEN, 3)} or len(lines) != batch or not finite:
-            fail(f"generate B={batch}: bad output")
+            fail(f"{label} B={batch}: bad output")
+    return counts
+
+
+def generate_phase(model, report):
+    counts = sample_phase(model, "generate", ((96, (60, 120, 0)), (1, (60, 0, 0))),
+                          ("fused_bottleneck", "fused_encoder_layer", "fused_unet_t4"))
     report["launches"] = {str(k): v for k, v in counts.items()}
+    return counts
+
+
+def t4_generate_phase(model, report):
+    with env_flag("DHG_FUSED_T4", "1"):
+        counts = sample_phase(model, "generate (DHG_FUSED_T4=1)",
+                              ((96, (60, 0, 0)), (1, (60, 0, 0))),
+                              ("fused_unet_t4", "fused_bottleneck", "fused_encoder_layer"))
+    report["t4_launches"] = {str(k): v for k, v in counts.items()}
     return counts
 
 
@@ -416,7 +526,7 @@ def reset_all_counts() -> None:
     fc.reset_launch_count()
 
 
-def train_phase(report):
+def train_phase(report, tmp):
     from dhg_torch.config import DLConfig
     from dhg_torch.inference import sample_lines
     from dhg_torch.kernels import fused_attention as fa
@@ -427,48 +537,96 @@ def train_phase(report):
     from dhg_torch.train import main as train_main
 
     set_train_flags(True)
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.reset_peak_memory_stats()
-        reset_all_counts()
-        t0 = time.perf_counter()
-        trainer = train_main(DLConfig(best_config(tmp, TRAIN_STEPS, TRAIN_B)), device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = (fa.launches["fused_attention"], fc.launches["fused_conv_block"],
-               fk.launches["fused_bottleneck"] + fk.launches["fused_encoder_layer"])
-        want = (9 * TRAIN_STEPS, 6 * TRAIN_STEPS, 0)
-        log(f"  {TRAIN_STEPS} steps in {wall:.1f} s (run set-up and saves included); launches "
-            f"attention {got[0]}, conv block {got[1]}, sampler kernels {got[2]} (want {want})")
-        if got != want:
-            fail(f"train: launches {got}, expected {want}")
-        run = trainer.exp_dir
-        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
-        losses = [r["loss"] for r in rows]
-        log(f"  logged steps {[r['step'] for r in rows]}, losses {losses}")
-        if [r["step"] for r in rows] != [5, 10, 15, 20] or not np.all(np.isfinite(losses)):
-            fail("train: bad metrics.jsonl")
-        saved = torch.load(run / "checkpoint_20", map_location="cpu", weights_only=True)
-        if saved.get("step") != 20 or not (run / "model_final").is_file():
-            fail("train: checkpoint_20 / model_final missing")
-        raw = DiffusionModel.load(run / "model_final", use_ema=False, device="cuda")
-        same = all(torch.equal(a, b) for a, b in zip(raw.state_dict().values(),
-                                                     trainer.model.state_dict().values()))
-        if not same:
-            fail("train: model_final does not hold the trained weights")
-        model = DiffusionModel.load(run / "model_final", dtype=torch.bfloat16, device="cuda")
-        prompts, _, style = make_inputs(4, seed=21)
-        lines = sample_lines(model, prompts, style, torch.Generator(device="cuda").manual_seed(4),
-                             device="cuda")
-        ok = len(lines) == 4 and all(a.shape == (SEQ_LEN, 3) and np.isfinite(a).all() for a in lines)
-        log(f"  model_final reloaded; 60-step sample_lines at batch 4: "
-            f"{'finite' if ok else 'BAD'}, shapes {sorted({a.shape for a in lines})}")
-        if not ok:
-            fail("train: sampling from model_final failed")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    trainer = train_main(DLConfig(best_config(tmp, TRAIN_STEPS, TRAIN_B)), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (fa.launches["fused_attention"], fc.launches["fused_conv_block"],
+           fk.launches["fused_bottleneck"] + fk.launches["fused_encoder_layer"])
+    want = (9 * TRAIN_STEPS, 6 * TRAIN_STEPS, 0)
+    log(f"  {TRAIN_STEPS} steps in {wall:.1f} s (run set-up and saves included); launches "
+        f"attention {got[0]}, conv block {got[1]}, sampler kernels {got[2]} (want {want})")
+    if got != want:
+        fail(f"train: launches {got}, expected {want}")
+    run = trainer.exp_dir
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows]
+    log(f"  logged steps {[r['step'] for r in rows]}, losses {losses}")
+    if [r["step"] for r in rows] != [5, 10, 15, 20] or not np.all(np.isfinite(losses)):
+        fail("train: bad metrics.jsonl")
+    saved = torch.load(run / "checkpoint_20", map_location="cpu", weights_only=True)
+    if saved.get("step") != 20 or not (run / "model_final").is_file():
+        fail("train: checkpoint_20 / model_final missing")
+    raw = DiffusionModel.load(run / "model_final", use_ema=False, device="cuda")
+    same = all(torch.equal(a, b) for a, b in zip(raw.state_dict().values(),
+                                                 trainer.model.state_dict().values()))
+    if not same:
+        fail("train: model_final does not hold the trained weights")
+    model = DiffusionModel.load(run / "model_final", dtype=torch.bfloat16, device="cuda")
+    prompts, _, style = make_inputs(4, seed=21)
+    lines = sample_lines(model, prompts, style, torch.Generator(device="cuda").manual_seed(4),
+                         device="cuda")
+    ok = len(lines) == 4 and all(a.shape == (SEQ_LEN, 3) and np.isfinite(a).all() for a in lines)
+    log(f"  model_final reloaded; 60-step sample_lines at batch 4: "
+        f"{'finite' if ok else 'BAD'}, shapes {sorted({a.shape for a in lines})}")
+    if not ok:
+        fail("train: sampling from model_final failed")
     set_train_flags(False)
     report.update(train_wall_s=wall, train_losses=losses,
                   train_peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
                   train_launches={"fused_attention": got[0], "fused_conv_block": got[1]})
-    return got
+    return got, run
+
+
+def infer_phase(run, tmp, report):
+    """The infer CLI on the train phase's run dir (f32, as dhg's infer): a
+    style PNG written with the port's own writer, one 23-character line to
+    a PNG, then the same prompt wrapped at 12 characters to an SVG."""
+    from dhg_torch.data.images import read_png, write_png
+    from dhg_torch.inference import main as infer_main
+    from dhg_torch.kernels import fused_attention as fa
+    from dhg_torch.kernels import fused_bottleneck as fk
+    from dhg_torch.kernels import fused_conv_block as fc
+
+    rng = np.random.RandomState(9)
+    page = np.full((80, 320), 245, np.uint8)
+    for _ in range(40):  # dark scribbles on a white page
+        r, c = rng.randint(10, 70), rng.randint(10, 290)
+        page[r - 2:r + 3, c:c + rng.randint(4, 20)] = rng.randint(0, 80)
+    style = os.path.join(tmp, "style.png")
+    write_png(style, page)
+    prompt = INFER_PROMPT
+    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "style_trunk_synth.npz")
+    common = [f"--prompt={prompt}", f"--source={style}", f"--experiment_path={run}",
+              f"--style_weights={weights}"]
+    outs = {}
+    for fmt, extra in (("png", []), ("svg", ["--wrap=12"])):
+        out = os.path.join(tmp, f"infer_{fmt}")
+        reset_all_counts()
+        t0 = time.perf_counter()
+        strokes = infer_main([*common, f"--output={out}", f"--format={fmt}", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernel_launches = sum(fk.launches.values()) + sum(fa.launches.values()) + sum(
+            fc.launches.values())
+        path = f"{out}.{fmt}"
+        ok = os.path.isfile(path) and np.isfinite(strokes).all() and kernel_launches == 0
+        if fmt == "png" and ok:
+            img = read_png(path)
+            ok = img.dtype == np.uint8 and img.size > 0 and (img == 0).any()
+            log(f"  infer {prompt!r} -> {os.path.basename(path)}: {img.shape[1]}x{img.shape[0]} "
+                f"px, strokes {strokes.shape}, {wall:.2f} s")
+        elif ok:
+            ok = open(path).read().startswith("<svg")
+            log(f"  infer --wrap=12 -> {os.path.basename(path)}: strokes {strokes.shape}, "
+                f"{wall:.2f} s")
+        if not ok:
+            fail(f"infer ({fmt}): bad output or a bf16 kernel launched ({kernel_launches})")
+        outs[fmt] = dict(shape=list(strokes.shape), wall_s=wall)
+    report["infer"] = outs
 
 
 def train_rate_phase(report):
@@ -565,16 +723,24 @@ def main() -> None:
         cases += train_kernel_phase(report)
         log("== denoise with kernels against the plain module path")
         denoise_phase(model, report)
+        log("== T4 region kernel against its plain version (seq_len 392)")
+        cases += t4_kernel_phase(model, report)
+        log("== denoise through the T4 kernel against the plain module path")
+        t4_denoise_phase(model, report)
     log("== backward of the autograd.Functions against the plain backward")
     gradient_phase(report)
     log("== sampler: sample_lines -> generate")
     counts = generate_phase(model, report)
+    t4_counts = t4_generate_phase(model, report)
     log("== timings")
     timing_phase(model, report)
     del model
     torch.cuda.empty_cache()
-    log("== train: dhg_torch.train.main, batch 96, both train-path kernels")
-    train_counts = train_phase(report)
+    with tempfile.TemporaryDirectory() as tmp:
+        log("== train: dhg_torch.train.main, batch 96, both train-path kernels")
+        train_counts, run = train_phase(report, tmp)
+        log("== infer: the CLI on the train run's model_final (f32)")
+        infer_phase(run, tmp, report)
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
 
@@ -592,6 +758,9 @@ def main() -> None:
                    train_counts[0], "sum over one training forward's 9 calls, B=96, T=480"),
         kernel_row("fused_conv_block", cases, timed("fused_conv_block", lambda r: r["per_step"]),
                    train_counts[1], "sum over one training forward's 6 blocks, bf16, B=96, T=480"),
+        kernel_row("fused_unet_t4", cases,
+                   timed("fused_unet_t4", lambda r: r["case"] == "T4 region B=96"),
+                   t4_counts[96][0], "T4 region B=96"),
     ]
     report["kernels"] = kernels
     if args.out:

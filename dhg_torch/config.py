@@ -82,10 +82,18 @@ class DLConfig:
 
     @classmethod
     def load(cls, path: PathLike | str) -> "DLConfig":
-        import yaml
-
+        """Read a config file: JSON (what `dump` writes without PyYAML) needs
+        no PyYAML; anything else is parsed as YAML."""
         with open(path) as f:
-            return cls(yaml.safe_load(f))
+            text = f.read()
+        try:
+            return cls(json.loads(text))
+        except ValueError:
+            pass
+        yaml = _yaml()
+        if yaml is None:
+            raise RuntimeError(f"{path}: not JSON, and PyYAML is not installed to read YAML")
+        return cls(yaml.safe_load(text))
 
     def dump(self, path: PathLike | str) -> None:
         with open(path, "w") as f:

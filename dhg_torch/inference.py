@@ -1,6 +1,11 @@
-"""The line sampler (port of dhg/inference.py::generate / sample_lines).
+"""The line sampler and the `infer` CLI (port of dhg/inference.py).
 
-It follows dhg's default "compact" hoist (_sample_jit):
+    python -m dhg_torch.inference --prompt="Hello" --source=<style.png> \
+        --experiment_path=<run dir> [--output=result] [--format=png|svg] \
+        [--device=cpu]
+
+`generate` / `sample_lines` follow dhg's default "compact" hoist
+(_sample_jit):
   * sigma embeddings and every FiLM coefficient are computed at batch 1 for
     all noise levels before the loop;
   * the text-style encoder's `pre` runs once and its `tail` once per level,
@@ -10,11 +15,19 @@ It follows dhg's default "compact" hoist (_sample_jit):
   * guidance runs a second U-Net pass against the null text, which keeps
     token 0 open (all-padding text would mask every key).
 The loop runs under torch.inference_mode().
+
+`infer` is dhg's front end: the run dir's checkpoint (model_final, then
+model_last, then the highest checkpoint_<N>) loaded in float32 as dhg's
+`infer` does (no bf16 kernel is on this path), a style vector from a PNG
+through the frozen StyleExtractor, the sampler, and a PNG or SVG of the
+strokes. Images are PNG only (dhg_torch.data.images).
 """
 
 from __future__ import annotations
 
+import sys
 from functools import lru_cache
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -24,6 +37,30 @@ from dhg_torch.core.sampling import diffusion_sample, infer_seq_len
 from dhg_torch.core.schedule import N_STEPS, get_alpha_set, get_beta_set
 from dhg_torch.data.tokenizer import Tokenizer
 from dhg_torch.ops.basic import create_padding_mask
+from dhg_torch.utils.vis import compose_lines, save_strokes
+
+
+def wrap_text(text: str, width: int) -> list[str]:
+    """Greedy word-boundary wrap of a paragraph into lines of <= width chars.
+
+    Words longer than width are hard-split; runs of whitespace collapse at
+    break points (textwrap semantics). Explicit newlines force line breaks,
+    and blank input lines survive as "" entries: they become blank page
+    lines under compose_lines (paragraph gaps).
+    """
+    import textwrap
+
+    if width < 1:
+        raise ValueError(f"wrap width must be >= 1, got {width}")
+    out: list[str] = []
+    for raw in text.splitlines() or [""]:
+        if not raw.strip():
+            out.append("")
+            continue
+        out.extend(
+            textwrap.wrap(raw, width=width, break_long_words=True, break_on_hyphens=False)
+        )
+    return out
 
 
 @lru_cache(maxsize=None)
@@ -170,3 +207,170 @@ def sample_lines(
     )
     arr = out.cpu().numpy()
     return [arr[i, : infer_seq_len(l)] for i, l in enumerate(lengths)]
+
+
+_style_extractors: dict = {}  # (weights_path, strict, device) -> StyleExtractor
+
+
+def style_from_image(source, img_height: int = 96, style_weights=None, strict: bool = False,
+                     device: str | torch.device = "cuda") -> torch.Tensor:
+    """Read a writer-style PNG and extract its [1, 14, 1280] style vector
+    (float32, on `device`).
+
+    style_weights: dhg's flat MobileNetV2 .npz; None resolves to the repo
+    default <repo>/data/mobilenetv2_tv.npz. A missing file warns loudly
+    (random trunk); strict=True raises instead. The extractor is built once
+    per (style_weights, strict, device) and reused."""
+    from dhg_torch.data.images import read_img
+    from dhg_torch.models.style_extractor import init_style_extractor
+
+    dev = resolve_device(device)
+    key = (None if style_weights is None else str(style_weights), bool(strict), str(dev))
+    if key not in _style_extractors:
+        _style_extractors[key] = init_style_extractor(style_weights, strict=strict, device=dev)
+    img = torch.from_numpy(read_img(source, img_height).astype(np.float32))[None].to(dev)
+    with torch.inference_mode():
+        return _style_extractors[key](img)
+
+
+def infer(
+    prompt: str | None = None,
+    source: str | None = None,
+    config_path: str | None = None,
+    checkpoint_path: str | None = None,
+    experiment_path: str | None = None,
+    output: str = "result",
+    diffusion_mode: str | None = None,
+    seed: int = 0,
+    show: bool = False,
+    guidance_scale: float | None = None,
+    style_weights: str | None = None,
+    strict_style: bool = False,
+    n_steps: int | None = None,
+    use_ema: bool = True,
+    schedule: str | None = None,
+    prompts_file: str | None = None,
+    format: str = "png",
+    temperature: float | None = None,
+    source2: str | None = None,
+    style_mix: float | None = None,
+    wrap: int | None = None,
+    line_gap: float | None = None,
+    align: str = "left",
+    device: str = "cuda",
+) -> np.ndarray | list[np.ndarray]:
+    """End-to-end inference, with dhg's arguments and defaults (plus
+    `device`); returns the [T, 3] stroke array, or one per line with
+    prompts_file.
+
+    The model loads in float32 (dhg's `infer` passes no dtype). Config and
+    checkpoint come from experiment_path (config.yml; model_final, then
+    model_last, then the highest checkpoint_<N>) unless given. format "png"
+    (render_strokes) or "svg". prompts_file: one prompt per line, sampled in
+    one padded batch, saved as <output>_000, <output>_001, ... wrap=N:
+    word-wrap the prompt into lines of <= N characters, sample them in one
+    batch and compose one page (line_gap, align). A distilled student
+    (config training_args.distilled_steps) defaults to its own grid:
+    n_steps = distilled_steps, schedule "halved", mode "ddim"; explicit
+    flags win. source2 / style_mix: the style becomes (1 - mix) * style
+    (source) + mix * style(source2), mix 0.5 by default. style_weights falls
+    back to the config's dataset_args.style_weights, then the repo default.
+    Randomness is a torch.Generator seeded with `seed` on `device`.
+    """
+    from dhg_torch.checkpoint import resolve_checkpoint
+    from dhg_torch.config import DLConfig
+    from dhg_torch.models.denoiser import DiffusionModel
+
+    if experiment_path:
+        exp = Path(experiment_path)
+        if not config_path:
+            config_path = str(exp / "config.yml")
+        if not checkpoint_path:
+            found = resolve_checkpoint(exp)
+            if found is not None:
+                checkpoint_path = str(found)
+    if not config_path or not checkpoint_path:
+        raise ValueError(
+            "Both config_path and checkpoint_path must be provided, "
+            "either directly or via experiment_path."
+        )
+    dev = resolve_device(device)
+    model = DiffusionModel.load(checkpoint_path, dtype=None, use_ema=use_ema, device=dev)
+    cfg = DLConfig.load(config_path)
+    if style_weights is None:
+        style_weights = cfg.dataset_args.style_weights
+
+    distilled = cfg.training_args.distilled_steps
+    if distilled:
+        n_steps = int(distilled) if n_steps is None else n_steps
+        schedule = "halved" if schedule is None else schedule
+        diffusion_mode = "ddim" if diffusion_mode is None else diffusion_mode
+    diffusion_mode = diffusion_mode or "new"
+    schedule = schedule or "strided"
+
+    if (prompt is None) == (prompts_file is None):
+        raise ValueError("provide exactly one of prompt or prompts_file")
+    if source is None:
+        raise ValueError("source (writer-style image) is required")
+    if style_mix is not None and source2 is None:
+        raise ValueError("style_mix requires source2 (a second style image)")
+
+    style = style_from_image(source, style_weights=style_weights, strict=strict_style, device=dev)
+    if source2 is not None:
+        mix = 0.5 if style_mix is None else float(style_mix)
+        style2 = style_from_image(source2, style_weights=style_weights, strict=strict_style,
+                                  device=dev)
+        style = (1.0 - mix) * style + mix * style2
+
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    sampling = dict(diffusion_mode=diffusion_mode, guidance_scale=guidance_scale,
+                    n_steps=n_steps, schedule=schedule, temperature=temperature, device=dev)
+    max_text_len = int(cfg.dataset_args.max_text_len or 50)
+
+    if wrap is not None:
+        if prompts_file is not None:
+            raise ValueError("wrap applies to a single --prompt, not prompts_file")
+        wrap = int(wrap)
+        if wrap + 1 > max_text_len:
+            raise ValueError(
+                f"wrap={wrap} + EOS exceeds the model's max_text_len="
+                f"{max_text_len}; use wrap <= {max_text_len - 1}"
+            )
+        wrapped = wrap_text(prompt, wrap)
+        to_sample = [ln for ln in wrapped if ln]
+        if not to_sample:
+            raise ValueError("prompt has no printable content to wrap")
+        sampled = iter(sample_lines(model, to_sample, style, gen, max_text_len=max_text_len,
+                                    **sampling))
+        page = compose_lines([next(sampled) if ln else None for ln in wrapped],
+                             line_gap=line_gap, align=align)
+        save_strokes(page, output, fmt=format, show_output=show)
+        return page
+
+    if prompts_file is not None:
+        prompts = [ln for ln in Path(prompts_file).read_text().splitlines() if ln.strip()]
+        if not prompts:
+            raise ValueError(f"no prompts in {prompts_file}")
+        lines = sample_lines(model, prompts, style, gen, max_text_len=max_text_len, **sampling)
+        for i, arr in enumerate(lines):
+            save_strokes(arr, f"{output}_{i:03d}", fmt=format, show_output=show)
+        return lines
+
+    encoded = Tokenizer().encode(prompt)
+    text = np.asarray([encoded], np.int64)
+    strokes = generate(model, text, style, gen, seq_len=infer_seq_len(len(encoded)), **sampling)
+    result = strokes[0].cpu().numpy()
+    save_strokes(result, output, fmt=format, show_output=show)
+    return result
+
+
+def main(argv=None):
+    """The CLI: --key=value arguments of `infer`; returns its strokes."""
+    from dhg_torch.config import parse_cli_kwargs
+
+    return infer(**parse_cli_kwargs(argv if argv is not None else sys.argv[1:],
+                                    help_text=__doc__))
+
+
+if __name__ == "__main__":
+    main()

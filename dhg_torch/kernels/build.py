@@ -114,6 +114,10 @@ def load() -> ctypes.CDLL:
     lib.dhg_fused_attention.restype = i
     lib.dhg_fused_conv_block.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.dhg_fused_conv_block.restype = i
+    lib.dhg_unet_t4_workspace_elems.argtypes = [i, i, i, i, i]
+    lib.dhg_unet_t4_workspace_elems.restype = ctypes.c_longlong
+    lib.dhg_fused_unet_t4.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, p]
+    lib.dhg_fused_unet_t4.restype = i
     return lib
 
 

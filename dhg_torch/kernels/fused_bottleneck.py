@@ -6,20 +6,27 @@ fused_bottleneck
 fused_encoder_layer
     Replaces dhg/kernels/fused_bottleneck.py::fused_encoder_layer: one
     EncoderLayer.attend (enc3 at T/2 and enc5 at T/4 in the sampler).
+fused_unet_t4
+    Replaces dhg/kernels/fused_bottleneck.py::fused_unet_t4: enc4, enc5,
+    pool, the bottleneck, upsample, skip_conv3 and dec3 in one launch
+    (DHG_FUSED_T4=1 only).
 
-Both run csrc/encoder_layer.cu on CUDA tensors (one block per batch row,
-mma.sync tensor-core tiles, weights streamed from L2/HBM; see the source's
-note for what bounds it). On an H100 the bottleneck is tensor-core bound at
-batch 96-256 (~314 MFLOP a row at T8 = 49) and weight-bandwidth bound at
-batch 1 (~6.3 MB of bf16 weights), where one block fills 1 SM of 132.
+The first two run csrc/encoder_layer.cu, the third csrc/unet_t4.cu, on CUDA
+tensors (one block per batch row, mma.sync tensor-core tiles, weights
+streamed from L2/HBM; see the sources' notes for what bounds them). On an
+H100 the bottleneck is tensor-core bound at batch 96-256 (~314 MFLOP a row
+at T8 = 49) and weight-bandwidth bound at batch 1 (~6.3 MB of bf16 weights),
+where one block fills 1 SM of 132.
 
 Beside each wrapper sits its plain PyTorch version with the kernel's
 rounding points (dhg's `_encoder_layer`): bf16 products with f32
 accumulation rounded once, then `+ bias` in bf16; bf16 logits times
 bf16(1/sqrt(hd)) plus the mask bias; f32 softmax; f32 LayerNorm statistics;
-f32 SiLU; bf16 FiLM. A wrapper takes the plain version only for CPU
-tensors; a CUDA tensor gets the kernel or an exception. Both kernels are
-forward-only, as in dhg: the wrappers refuse to run under autograd.
+f32 SiLU; bf16 FiLM; in the T4 region's k3 convs, the three taps and the
+bias summed in f32 and rounded once (dhg's `_conv3_packed`). A wrapper
+takes the plain version only for CPU tensors; a CUDA tensor gets the kernel
+or an exception. The kernels are forward-only, as in dhg: the wrappers
+refuse to run under autograd.
 
 `launches` counts kernel launches (never the plain versions).
 
@@ -36,11 +43,14 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 PER_LAYER = 24
+PER_CONV = 14
+MAX_LAYERS = 8  # DHG_MAX_LAYERS in csrc/encoder_layer.cuh
 BF16 = torch.bfloat16
 
-launches = {"fused_bottleneck": 0, "fused_encoder_layer": 0}
+launches = {"fused_bottleneck": 0, "fused_encoder_layer": 0, "fused_unet_t4": 0}
 
 
 def reset_launch_counts() -> None:
@@ -111,6 +121,43 @@ def bottleneck_plain(x, att_w, att_b, pe, neg, ops, num_layers: int, num_heads: 
     for i in range(num_layers):
         h = encoder_layer_plain(h, pe, neg, ops[i * PER_LAYER:(i + 1) * PER_LAYER], num_heads)
     return h
+
+
+def _conv3(x, w, b):
+    """dhg's _conv3_packed: k3 'same' conv of x [B, T, Cin] with w [Co, 3*Cin]
+    (column k*Cin + i multiplies x[t + k - 1, i]); the three taps and the bias
+    summed in f32, then one rounding to bf16."""
+    xp = F.pad(x, (0, 0, 1, 1))
+    xcat = torch.cat([xp[:, :-2], xp[:, 1:-1], xp[:, 2:]], dim=-1)
+    return (torch.matmul(xcat.float(), w.float().t()) + b.float()).to(BF16)
+
+
+def conv_block_t4_plain(x, ops: Sequence[torch.Tensor]):
+    """dhg's _conv_block_packed: a ConvBlock in bf16 (not conv_block_plain,
+    which is dhg's all-f32 conv_block_ref). FiLM multiplies and adds, the fc's
+    `+ bias` and `h + skip` each round to bf16."""
+    wskip, bskip, w1, b1, w2, b2, wfc, bfc, g1, be1, g2, be2, g3, be3 = ops
+    skip = _conv3(x, wskip, bskip)
+    h = _conv3(_silu(x), w1, b1) * g1 + be1
+    h = _conv3(_silu(h), w2, b2) * g2 + be2
+    h = _dense(_silu(h), wfc, bfc) * g3 + be3
+    return h + skip
+
+
+def _avg_pool2(x):
+    """Window-2 mean over T, taken in f32 and rounded once."""
+    b, t, c = x.shape
+    return x.float().reshape(b, t // 2, 2, c).mean(dim=2).to(BF16)
+
+
+def unet_t4_plain(x, neg, pe4, pe8, att_w, att_b, skip3_w, skip3_b, enc4_ops, enc5_ops,
+                  dec3_ops, att_ops, num_layers: int, att_heads: int = 6, enc5_heads: int = 4):
+    """dhg's _make_t4_kernel: enc4, enc5, pool, the bottleneck, upsample,
+    skip_conv3 and dec3 with the kernel's rounding points."""
+    h3 = encoder_layer_plain(conv_block_t4_plain(x, enc4_ops), pe4, neg, enc5_ops, enc5_heads)
+    x8 = bottleneck_plain(_avg_pool2(h3), att_w, att_b, pe8, neg, att_ops, num_layers, att_heads)
+    xu = torch.repeat_interleave(x8, 2, dim=1)
+    return conv_block_t4_plain(xu + _conv3(h3, skip3_w, skip3_b), dec3_ops)
 
 
 # -- checks shared by both paths --------------------------------------------
@@ -195,7 +242,7 @@ def fused_bottleneck(x, att_w, att_b, pe, neg, layer_ops: Sequence[torch.Tensor]
     d, cin = att_w.shape[0], x.shape[-1]
     b, t, l = _check_common(x, pe, neg, d, num_heads)
     _require(cin % 16 == 0, f"x: input width {cin} must be a multiple of 16")
-    _require(1 <= num_layers <= 8, f"num_layers {num_layers} outside [1, 8]")
+    _require(1 <= num_layers <= MAX_LAYERS, f"num_layers {num_layers} outside [1, {MAX_LAYERS}]")
     _check_tensor("x", x, (b, t, cin), x.device)
     _check_tensor("att_w", att_w, (d, cin), x.device)
     _check_tensor("att_b", att_b, (d,), x.device)
@@ -220,4 +267,77 @@ def fused_bottleneck(x, att_w, att_b, pe, neg, layer_ops: Sequence[torch.Tensor]
     )
     check_rc(lib, rc, "fused_bottleneck")
     launches["fused_bottleneck"] += 1
+    return out
+
+
+def _check_conv(ops, cin, co, device, prefix):
+    _require(len(ops) == PER_CONV, f"{prefix}expected {PER_CONV} operands, got {len(ops)}")
+    c2 = co // 2
+    shapes = [(co, 3 * cin), (co,), (c2, 3 * cin), (c2,), (co, 3 * c2), (co,), (co, co), (co,),
+              (c2,), (c2,), (co,), (co,), (co,), (co,)]
+    names = ["wskip", "bskip", "w1", "b1", "w2", "b2", "wfc", "bfc",
+             "g1", "be1", "g2", "be2", "g3", "be3"]
+    for name, op, shape in zip(names, ops, shapes):
+        _check_tensor(prefix + name, op, shape, device)
+
+
+def fused_unet_t4(x, neg, pe4, pe8, att_w, att_b, skip3_w, skip3_b,
+                  enc4_ops: Sequence[torch.Tensor], enc5_ops: Sequence[torch.Tensor],
+                  dec3_ops: Sequence[torch.Tensor], att_ops: Sequence[torch.Tensor],
+                  num_layers: int, att_heads: int = 6, enc5_heads: int = 4):
+    """The sampler's whole T/4..T/8 region: x [B, T4, c2] (pooled h2) ->
+    dec3's output [B, T4, c3], bf16.
+
+    Operands in dhg's order: neg [B, 1, L]; pe4 [T4, c3] (pos_factor 2);
+    pe8 [T4/2, D] (pos_factor 1); att_w [D, c3], att_b [D]; skip3_w
+    [D, 3*c3], skip3_b [D]; enc4_ops and dec3_ops, 14 each (conv_skip, conv1,
+    conv2 weights as [Co, 3*Cin] rows, column k*Cin + i multiplying
+    x[t + k - 1, i], each with its bias; fc [Co, Co] torch Linear layout and
+    bias; FiLM gamma/beta [Co/2], [Co], [Co]); enc5_ops, 24 (heads of
+    c3/enc5_heads); att_ops, 24 per attention layer (heads of D/att_heads).
+    """
+    _require(x.dim() == 3 and x.device.type in ("cpu", "cuda"),
+             f"x: expected [B, T4, C] on cpu or cuda, got {tuple(x.shape)} on {x.device}")
+    b, t4, c2 = x.shape
+    c3, d = skip3_w.shape[1] // 3, att_w.shape[0]
+    _require(t4 % 2 == 0, f"x: T4 = {t4} must be even")
+    _require(all(c % 16 == 0 for c in (c2, c3, c3 // 2, d)),
+             f"widths {c2}, {c3}, {d} (and {c3 // 2}) must be multiples of 16")
+    for width, heads in ((c3, enc5_heads), (d, att_heads)):
+        _require(heads > 0 and width % heads == 0 and (width // heads) % 16 == 0,
+                 f"width {width} with {heads} heads: head dim must be a multiple of 16")
+    _require(1 <= num_layers <= MAX_LAYERS, f"num_layers {num_layers} outside [1, {MAX_LAYERS}]")
+    _require(neg.dim() == 3 and neg.shape[1] == 1,
+             f"neg: expected [B, 1, L], got {tuple(neg.shape)}")
+    l, dev = neg.shape[2], x.device
+    for name, t, shape in (("x", x, (b, t4, c2)), ("neg", neg, (b, 1, l)), ("pe4", pe4, (t4, c3)),
+                           ("pe8", pe8, (t4 // 2, d)), ("att_w", att_w, (d, c3)),
+                           ("att_b", att_b, (d,)), ("skip3_w", skip3_w, (d, 3 * c3)),
+                           ("skip3_b", skip3_b, (d,))):
+        _check_tensor(name, t, shape, dev)
+    _check_conv(enc4_ops, c2, c3, dev, "enc4: ")
+    _check_layer(enc5_ops, b, t4, c3, enc5_heads, l, dev, prefix="enc5: ")
+    _check_conv(dec3_ops, d, c3, dev, "dec3: ")
+    _require(len(att_ops) == num_layers * PER_LAYER,
+             f"expected {num_layers * PER_LAYER} attention-layer operands, got {len(att_ops)}")
+    for i in range(num_layers):
+        _check_layer(att_ops[i * PER_LAYER:(i + 1) * PER_LAYER], b, t4 // 2, d, att_heads, l,
+                     dev, prefix=f"layer {i}: ")
+    ops = [x, neg, pe4, pe8, att_w, att_b, skip3_w, skip3_b,
+           *enc4_ops, *enc5_ops, *dec3_ops, *att_ops]
+    if dev.type == "cpu":
+        return unet_t4_plain(*ops[:8], enc4_ops, enc5_ops, dec3_ops, att_ops,
+                             num_layers, att_heads, enc5_heads)
+    _forward_only(ops)
+    from dhg_torch.kernels.build import check_rc, load
+
+    lib = load()
+    ws = torch.empty(b * lib.dhg_unet_t4_workspace_elems(t4, c2, c3, d, l), dtype=BF16, device=dev)
+    out = torch.empty((b, t4, c3), dtype=BF16, device=dev)
+    rc = lib.dhg_fused_unet_t4(
+        _ptrs(ops), num_layers, out.data_ptr(), ws.data_ptr(), b, t4, c2, c3, d,
+        enc5_heads, att_heads, l, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_rc(lib, rc, "fused_unet_t4")
+    launches["fused_unet_t4"] += 1
     return out

@@ -13,6 +13,7 @@ default "0" as in dhg. "1" routes every attention (ConvBlock) through its
 kernel on CUDA tensors and through the kernel's plain version on CPU
 tensors; the backward of both recomputes the plain math, so the flags are
 safe for the sampler and the train step alike.
+DHG_FUSED_T4 gates the sampler's fused_unet_t4 path, default "0" as in dhg.
 dhg's `rows` packing and DHG_SDPA_BATCHED are TPU lowering choices with
 identical output; they have no counterpart here.
 """
@@ -36,6 +37,14 @@ def fused_bottleneck_mode(device: torch.device) -> str:
 
 def _flag_on(name: str, device: torch.device) -> bool:
     return os.environ.get(name, "0") == "1" and torch.device(device).type in ("cpu", "cuda")
+
+
+def fused_t4_mode(device: torch.device) -> str:
+    """"off" | "on": the whole T/4..T/8 region of the sampler's denoise in
+    one fused_unet_t4 launch. DHG_FUSED_T4=1 turns it on (off by default,
+    as in dhg): the kernel for CUDA tensors, its plain version for CPU ones.
+    dhg's "auto" branch is unreachable there, so it has no counterpart."""
+    return "on" if _flag_on("DHG_FUSED_T4", device) else "off"
 
 
 def use_fused_attention(device: torch.device) -> bool:

@@ -12,7 +12,9 @@ Parameters are float32; `dtype=torch.bfloat16` is the compute type of the
 sampler and of the training config. With precomputed kvs/films in bf16 (the
 sampler's context) the bottleneck and enc3/enc5 go through the hand-written
 kernels under the same gates as dhg, with CUDA in place of the TPU
-(kernels/runtime.py); under train() with live dropout they stay off. The
+(kernels/runtime.py); under train() with live dropout they stay off. With
+DHG_FUSED_T4=1 the same context sends the whole T/4..T/8 region (enc4 to
+dec3) to one fused_unet_t4 launch instead, as dhg's _denoise_fused_t4. The
 training forward is `forward` under train(): dropout (drop_rate and the
 style dropout 0.3) is live, and attention and ConvBlocks take their kernels
 when DHG_FUSED_ATTENTION / DHG_FUSED_CONVBLOCK are set.
@@ -24,8 +26,9 @@ import torch
 from torch import nn
 
 from dhg_torch import resolve_device
-from dhg_torch.kernels.fused_bottleneck import fused_bottleneck, fused_encoder_layer
-from dhg_torch.kernels.runtime import fused_bottleneck_mode
+from dhg_torch.kernels.fused_bottleneck import (fused_bottleneck, fused_encoder_layer,
+                                                 fused_unet_t4)
+from dhg_torch.kernels.runtime import fused_bottleneck_mode, fused_t4_mode
 from dhg_torch.models.encoder_layer import EncoderLayer
 from dhg_torch.models.text_style import TextStyleEncoder
 from dhg_torch.ops.attention import pos_embeddings
@@ -125,13 +128,10 @@ class DiffusionModel(nn.Module):
 
     # -- the U-Net -------------------------------------------------------------
 
-    def _can_fuse_bottleneck(self, kvs, films, device) -> bool:
+    def _sampler_context(self, kvs, films) -> bool:
         """The kernels apply on the sampler path only: bf16 compute,
         precomputed kvs + films with the batch-1 FiLM broadcast, no active
-        dropout. "auto" also requires d = 384."""
-        mode = fused_bottleneck_mode(device)
-        if mode == "off" or (mode == "auto" and self.c2 * 2 != 384):
-            return False
+        dropout."""
         return (
             self.num_layers > 0
             and kvs is not None
@@ -140,6 +140,18 @@ class DiffusionModel(nn.Module):
             and (self.drop_rate == 0.0 or not self.training)
             and films["attn"][0][0][0].shape[0] == 1
         )
+
+    def _can_fuse_bottleneck(self, kvs, films, device) -> bool:
+        """The sampler context; "auto" also requires d = 384."""
+        mode = fused_bottleneck_mode(device)
+        if mode == "off" or (mode == "auto" and self.c2 * 2 != 384):
+            return False
+        return self._sampler_context(kvs, films)
+
+    def _can_fuse_t4(self, kvs, films, device) -> bool:
+        """DHG_FUSED_T4=1 in the sampler context (dhg's gate, without its
+        unreachable "auto" branch)."""
+        return fused_t4_mode(device) == "on" and self._sampler_context(kvs, films)
 
     def _fused_layer(self, layer, x, kv, film3, text_mask):
         return fused_encoder_layer(
@@ -160,6 +172,43 @@ class DiffusionModel(nn.Module):
             *self.bottleneck_operands(x, kvs, films, text_mask),
             self.num_layers, self.att_layers[0].num_heads,
         )
+
+    def t4_operands(self, x4, kvs, films, text_mask):
+        """fused_unet_t4's operands for the pooled h2 `x4` [B, T/4, c2], in
+        dhg's order: x, neg, pe4, pe8, att_w, att_b, skip3_w, skip3_b, then
+        enc4, enc5, dec3 and the attention layers' operand lists."""
+        cf, af = films["conv"], films["attn"]
+        t4, d = x4.shape[1], self.c2 * 2
+
+        def conv_ops(block, film3):
+            ops = [*block.conv_skip.gemm_rows(BF16), *block.conv1.gemm_rows(BF16),
+                   *block.conv2.gemm_rows(BF16), *block.fc.cast(BF16)]
+            return ops + [_film_operand(c) for pair in film3 for c in pair]
+
+        att_ops = []
+        for i, layer in enumerate(self.att_layers):
+            att_ops += _encoder_layer_ops(layer, kvs[2 + i], af[2 + i])
+        return (
+            x4.to(BF16).contiguous(), _mask_bias(text_mask),
+            pos_embeddings(t4, self.c3, 2.0, BF16, x4.device)[0].contiguous(),
+            pos_embeddings(t4 // 2, d, 1.0, BF16, x4.device)[0].contiguous(),
+            *self.att_dense.cast(BF16), *self.skip_conv3.gemm_rows(BF16),
+            conv_ops(self.enc4, cf[2]), _encoder_layer_ops(self.enc5, kvs[1], af[1]),
+            conv_ops(self.dec3, cf[3]), att_ops,
+        )
+
+    def _denoise_fused_t4(self, strokes, text_mask, kvs, films):
+        """denoise() with the whole T/4..T/8 region in one fused_unet_t4
+        launch (dhg's _denoise_fused_t4): enc1-enc3 (enc3 through its plain
+        attend, as in dhg) before it, dec2-dec1 and the heads after it."""
+        cf, af = films["conv"], films["attn"]
+        x = self.input_dense(strokes, self.dtype)
+        h1 = self.enc1(x, None, coeffs=cf[0])
+        h2 = self.enc2(avg_pool_1d(h1), None, coeffs=cf[1])
+        h2 = self.enc3.attend(h2, kvs[0], None, text_mask, af[0])
+        x = fused_unet_t4(*self.t4_operands(avg_pool_1d(h2), kvs, films, text_mask),
+                          self.num_layers, self.att_layers[0].num_heads, self.enc5.num_heads)
+        return self._decode_tail(x, h1, h2, cf)
 
     def encode_unet(self, strokes, cond, sigma_emb, text_mask, kvs=None, films=None):
         """x_t -> (h1 [B,T,c1], h2 [B,T/2,c2], h3 [B,T/4,c3])."""
@@ -198,8 +247,13 @@ class DiffusionModel(nn.Module):
             for i, layer in enumerate(self.att_layers):
                 kv = kvs[2 + i] if kvs is not None else layer.text_kv(cond, sigma_emb)
                 x = layer.attend(x, kv, sigma_emb, text_mask, af[2 + i])
+        x = self.dec3(upsample_nearest_1d(x) + self.skip_conv3(h3, self.dtype), sigma_emb,
+                      coeffs=cf[3])
+        return self._decode_tail(x, h1, h2, cf, sigma_emb)
+
+    def _decode_tail(self, x, h1, h2, cf, sigma_emb=None):
+        """dec2, dec1 and the heads from dec3's output: (eps, pen), float32."""
         dt = self.dtype
-        x = self.dec3(upsample_nearest_1d(x) + self.skip_conv3(h3, dt), sigma_emb, coeffs=cf[3])
         x = self.dec2(upsample_nearest_1d(x) + self.skip_conv2(h2, dt), sigma_emb, coeffs=cf[4])
         x = self.dec1(upsample_nearest_1d(x) + self.skip_conv1(h1, dt), sigma_emb, coeffs=cf[5])
         eps = self.output_dense(x, dt)
@@ -207,6 +261,8 @@ class DiffusionModel(nn.Module):
         return eps.float(), pen.float()
 
     def denoise(self, strokes, cond, sigma_emb, text_mask, kvs=None, films=None):
+        if self._can_fuse_t4(kvs, films, strokes.device):
+            return self._denoise_fused_t4(strokes, text_mask, kvs, films)
         feats = self.encode_unet(strokes, cond, sigma_emb, text_mask, kvs, films)
         return self.decode_unet(feats, cond, sigma_emb, text_mask, kvs, films)
 

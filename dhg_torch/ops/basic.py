@@ -16,20 +16,23 @@ from torch import nn
 
 
 class CastCache:
-    """Mixin: `self._cached(dtype, make)` returns make(dtype), memoized on the
+    """Mixin: `self._cached(dtype, make)` returns make(dtype), memoized per
+    `make` (one slot for each layout a module hands out) on the dtype and the
     parameters' storage and version (load_state_dict / .to() invalidate it).
     Nothing is cached while autograd records, so gradients still flow."""
 
-    _cache_key = None
-    _cache_val = None
+    _cast_cache = None
 
     def _cached(self, dtype, make):
         if torch.is_grad_enabled():
             return make(dtype)
         key = (dtype,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._cache_key != key:
-            self._cache_val, self._cache_key = make(dtype), key
-        return self._cache_val
+        if self._cast_cache is None:
+            self._cast_cache = {}
+        slot = self._cast_cache.get(make.__name__)
+        if slot is None or slot[0] != key:
+            slot = self._cast_cache[make.__name__] = (key, make(dtype))
+        return slot[1]
 
 
 class Linear(CastCache, nn.Linear):

@@ -33,6 +33,16 @@ class Conv3(CastCache, nn.Conv1d):
         w = self.weight.permute(2, 1, 0).reshape(-1, self.out_channels)
         return w.to(dtype).contiguous(), self.bias.to(dtype)
 
+    def _rows(self, dtype):
+        # [out, in, k] -> [out, k*in]: the transpose of _packed.
+        w = self.weight.permute(0, 2, 1).reshape(self.out_channels, -1)
+        return w.to(dtype).contiguous(), self.bias.to(dtype)
+
+    def gemm_rows(self, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """(weight [out, 3*in], bias [out]) in `dtype`: column k*in + i
+        multiplies x[t + k - 1, i] (the fused_unet_t4 kernel's layout)."""
+        return self._cached(dtype, self._rows)
+
     def taps(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(weight [3, in, out], bias [out]) in float32: dhg's conv kernel layout."""
         w, b = self._cached(torch.float32, self._packed)

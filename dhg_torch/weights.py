@@ -1,4 +1,5 @@
-"""The weight bridge: dhg params or an exported .pth -> the port's state_dict.
+"""The weight bridge: dhg params or an exported .pth -> the port's state_dict
+(and dhg's StyleExtractor .npz -> the port's, style_state_dict_from_flat).
 
 The port's module names are the reference torch names, the same ones that
 `python -m dhg.tools.export_torch_checkpoint` writes, so one strict
@@ -117,3 +118,43 @@ def config_from_state_dict(sd: dict) -> dict:
     channels = int(sd["input_dense.weight"].shape[0])
     n_att = len({k.split(".")[1] for k in sd if k.startswith("att_layers.")})
     return {"channels": channels, "att_layers_num": n_att}
+
+
+def style_state_dict_from_flat(flat: dict) -> "OrderedDict[str, torch.Tensor]":
+    """dhg's flat StyleExtractor .npz ({'params/mobilenet/...': array,
+    'batch_stats/mobilenet/...': array}) -> the state_dict of
+    dhg_torch.models.style_extractor.StyleExtractor.
+
+      * conv kernel HWIO [kh, kw, in/groups, out] -> Conv2d weight OIHW (the
+        depthwise [3, 3, 1, C] -> [C, 1, 3, 3]);
+      * BatchNorm scale, bias -> weight, bias; mean, var -> running_mean,
+        running_var (num_batches_tracked 0; eval mode never reads it).
+
+    Raises KeyError naming any missing or extra key."""
+    from dhg_torch.models.style_extractor import StyleExtractor
+
+    out: dict = OrderedDict()
+    used = set()
+
+    def take(key):
+        if key not in flat:
+            raise KeyError(f"style weights: missing {key}")
+        used.add(key)
+        return np.asarray(flat[key], np.float32)
+
+    for name in StyleExtractor().state_dict():
+        *path, leaf = name.split(".")
+        module = "/".join(path)
+        if leaf == "num_batches_tracked":
+            out[name] = torch.zeros((), dtype=torch.long)
+        elif leaf == "weight" and path[-1] in ("conv", "project"):
+            out[name] = _t(take(f"params/{module}/kernel").transpose(3, 2, 0, 1))
+        else:
+            kind, flax_leaf = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                               "running_mean": ("batch_stats", "mean"),
+                               "running_var": ("batch_stats", "var")}[leaf]
+            out[name] = _t(take(f"{kind}/{module}/{flax_leaf}"))
+    extra = sorted(set(flat) - used)
+    if extra:
+        raise KeyError(f"style weights: {len(extra)} unexpected entries, e.g. {extra[:3]}")
+    return out

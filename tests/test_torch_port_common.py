@@ -6,7 +6,6 @@ Helpers only: it defines no tests.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -14,6 +13,12 @@ import torch
 from dhg.models.denoiser import DiffusionModel as JaxModel
 from dhg_torch.models.denoiser import DiffusionModel as TorchModel
 from dhg_torch.weights import state_dict_from_dhg
+
+# The port's tests run tiny tensors through thousands of eager ops, where
+# intra-op threads only add overhead: with one thread per process a 60-step
+# CPU sampler call runs ~10x faster, and the pytest-xdist workers stop
+# oversubscribing the cores (6 workers x 8 threads) that every test shares.
+torch.set_num_threads(1)
 
 C1 = 32  # c1/c2/c3 = 32/48/64, bottleneck 96 wide with 6 heads of 16
 N_LAYERS = 2
@@ -23,21 +28,11 @@ def jax_model(dtype=None, c1=C1, num_layers=N_LAYERS) -> JaxModel:
     return JaxModel(num_layers=num_layers, c1=c1, c2=c1 * 3 // 2, c3=c1 * 2, dtype=dtype)
 
 
-def init_params(seed=0, c1=C1, num_layers=N_LAYERS):
-    """dhg params of the small model, as nested numpy arrays."""
-    model = jax_model(c1=c1, num_layers=num_layers)
-    strokes = jnp.zeros((2, 16, 2))
-    text = jnp.ones((2, 5), jnp.int32)
-    sigma = jnp.full((2, 1), 0.5)
-    style = jnp.zeros((2, 14, 1280))
-    params = model.init(jax.random.PRNGKey(seed), strokes, text, sigma, style)["params"]
-    return jax.tree.map(np.asarray, params)
-
-
 def random_params(seed=0, c1=C1, num_layers=N_LAYERS):
-    """dhg params of the small model made by the port's seeded init and
-    dhg's own torch -> dhg converter: the same distribution as dhg's init,
-    without compiling dhg's init program (which takes ~25 s on the CPU)."""
+    """dhg params of the small model (nested numpy arrays) made by the
+    port's seeded init and dhg's own torch -> dhg converter: the same
+    distribution as dhg's init, without compiling dhg's init program (which
+    takes ~25-40 s on the CPU)."""
     from dhg.tools.convert_torch_checkpoint import convert_state_dict
 
     model = TorchModel.from_config(

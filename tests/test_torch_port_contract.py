@@ -1,6 +1,7 @@
 """The port's contract: entry points run on the card unless the caller asks
-for the CPU, and nothing in dhg_torch/ or chip_smoke.py imports JAX, flax or
-the dhg package."""
+for the CPU, and nothing in dhg_torch/ or chip_smoke.py imports JAX, flax,
+the dhg package or a library the card's machine lacks (cv2, PIL,
+matplotlib, torchvision)."""
 
 import ast
 from pathlib import Path
@@ -10,14 +11,15 @@ import pytest
 import torch
 
 from dhg_torch import resolve_device
-from dhg_torch.inference import generate, sample_lines
+from dhg_torch.inference import generate, infer, sample_lines, style_from_image
 from dhg_torch.models.denoiser import DiffusionModel
 from dhg_torch.config import DLConfig
 from dhg_torch.train import Trainer, main
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "dhg_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "dhg"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "dhg", "cv2", "PIL", "matplotlib",
+          "torchvision"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -57,6 +59,11 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
         generate(model, text, style, seq_len=16, n_steps=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sample_lines(model, ["hi"], style, n_steps=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        infer(prompt="hi", source="style.png", config_path="config.yml",
+              checkpoint_path=str(tmp_path / "m.pth"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        style_from_image("style.png")
     cfg = DLConfig({"experiment": {"work_dir": str(tmp_path / "runs")}, "dataset_args": {},
                     "optimizer": {"type": "torch.optim.Adam"},
                     "training_args": {"channels": 16, "att_layers_num": 1, "batch_size": 2,

@@ -63,6 +63,47 @@ def test_cuda_bottleneck_matches_plain(cuda, b, t_len, cin, d, l):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t4,c2,c3,d,l,n_layers", [(2, 12, 48, 64, 96, 7, 1),
+                                                     (1, 98, 192, 256, 384, 50, 2),
+                                                     (96, 98, 192, 256, 384, 50, 2)])
+def test_cuda_unet_t4_matches_plain(cuda, b, t4, c2, c3, d, l, n_layers):
+    from test_torch_port_operands import t4_operands
+
+    _, o = t4_operands(np.random.RandomState(b), b, t4, c2, c3, d, 4, 6, l, n_layers,
+                       device=cuda)
+    args = [o[k] for k in ("x", "neg", "pe4", "pe8", "aw", "ab", "sk3w", "sk3b",
+                           "enc4", "enc5", "dec3", "att")]
+    with torch.no_grad():
+        n = tk.launches["fused_unet_t4"]
+        ours = tk.fused_unet_t4(*args, n_layers, 6, 4)
+        torch.cuda.synchronize()
+        assert tk.launches["fused_unet_t4"] == n + 1
+        ref = tk.unet_t4_plain(*args, n_layers, 6, 4)
+    assert ours.shape == (b, t4, c3)
+    _close(ours, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_t4_generate_launch_counts(cuda, monkeypatch):
+    """DHG_FUSED_T4=1: one fused_unet_t4 launch a step, no other sampler
+    kernel (enc3 runs its plain attend, as in dhg)."""
+    from dhg_torch.inference import generate
+    from dhg_torch.models.denoiser import DiffusionModel
+
+    monkeypatch.setenv("DHG_FUSED_T4", "1")
+    model = DiffusionModel.from_config({"channels": 128}, dtype=BF, device=cuda)
+    rng = np.random.RandomState(1)
+    text = rng.randint(2, 73, (8, 10))
+    style = rng.randn(8, 14, 1280).astype(np.float32)
+    tk.reset_launch_counts()
+    out = generate(model, text, style, torch.Generator(cuda).manual_seed(0), seq_len=64,
+                   n_steps=4, device=cuda)
+    torch.cuda.synchronize()
+    assert out.shape == (8, 64, 3) and torch.isfinite(out).all()
+    assert tk.launches == {"fused_unet_t4": 4, "fused_bottleneck": 0, "fused_encoder_layer": 0}
+
+
+@pytest.mark.cuda
 def test_cuda_kernels_refuse_autograd(cuda):
     _, o = kernel_operands(np.random.RandomState(0), 2, 8, 48, 3, 5, device=cuda)
     x = o["x"].clone().requires_grad_(True)

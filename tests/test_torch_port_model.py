@@ -2,6 +2,7 @@
 dhg's params carried over by the weight bridge: ops and modules within
 1e-5, the full DiffusionModel forward within 1e-4 (ARCHITECTURE.md's bar)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +26,12 @@ def ctx():
     jm = jax_model()
     pm = port_model(params)
     strokes, text, sigma, style = inputs(batch=2, seq_len=16, text_len=6, seed=2)
-    apply = lambda *a, **k: jm.apply({"params": params}, *a, **k)  # noqa: E731
+    def apply(*a, method=None, **k):
+        """dhg's apply as one compiled program: eager flax would compile
+        every op on its own."""
+        out = jax.jit(lambda p, *x: jm.apply({"params": p}, *x, method=method, **k))(params, *a)
+        return jax.block_until_ready(out)
+
     se = apply(jnp.asarray(sigma), method=JaxModel.embed_sigma)
     cond = apply(jnp.asarray(text), jnp.asarray(style), se, method=JaxModel.encode_cond)
     return dict(params=params, jm=jm, pm=pm, apply=apply, strokes=strokes, text=text,
@@ -105,9 +111,8 @@ def test_encoder_layer_and_conv_block(ctx):
 
 
 def test_full_forward_f32(ctx):
-    jm, apply = ctx["jm"], ctx["apply"]
     s, tx, sg, st = ctx["strokes"], ctx["text"], ctx["sigma"], ctx["style"]
-    eps, pen = apply(jnp.asarray(s), jnp.asarray(tx), jnp.asarray(sg), jnp.asarray(st))
+    eps, pen = ctx["apply"](s, tx, sg, st)
     with torch.no_grad():
         oeps, open_ = ctx["pm"](t(s), t(tx), t(sg), t(st))
     assert oeps.dtype == open_.dtype == torch.float32
@@ -124,8 +129,8 @@ def test_denoise_with_hoisted_context_f32(ctx):
     kvs = apply(cond, se1, method=JaxModel.precompute_cross_kv)
     films = apply(se1, method=JaxModel.precompute_film)
     mask = jb.create_padding_mask(jnp.asarray(ctx["text"]))
-    eps, pen = apply(jnp.asarray(ctx["strokes"]), None, None, mask,
-                     method=JaxModel.denoise, kvs=kvs, films=films)
+    eps, pen = apply(ctx["strokes"], None, None, mask, kvs, films,
+                     method=lambda m, x, c, s, k, kv, fi: m.denoise(x, c, s, k, kvs=kv, films=fi))
     with torch.no_grad():
         okvs = pm.precompute_cross_kv(t(cond), t(se1))
         ofilms = pm.precompute_film(t(se1))

@@ -17,13 +17,15 @@ from dhg_torch.inference import generate, sample_lines
 from test_torch_port_common import inputs, jax_model, port_model, random_params
 
 SEQ_LEN = 16
+C1, N_LAYERS = 16, 1  # small: each case's cost is dhg's sampler compile
 
 
 @pytest.fixture(scope="module")
 def ctx():
-    params = random_params(seed=6)
+    params = random_params(seed=6, c1=C1, num_layers=N_LAYERS)
     _, text, _, style = inputs(batch=2, seq_len=SEQ_LEN, text_len=5, seed=7)
-    return params, jax_model(), port_model(params), text, style
+    return (params, jax_model(c1=C1, num_layers=N_LAYERS),
+            port_model(params, c1=C1, num_layers=N_LAYERS), text, style)
 
 
 def _draws(key, batch, n):

@@ -4,6 +4,7 @@ model_final (loaded by DiffusionModel.load, which then samples), resume,
 the interrupt save; and the config and checkpoint helpers it rests on."""
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -18,6 +19,8 @@ from dhg_torch import config as cf
 from dhg_torch import train as tr
 from dhg_torch.inference import generate
 from dhg_torch.models.denoiser import DiffusionModel
+
+torch.set_num_threads(1)  # tiny tensors: see test_torch_port_common.py
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ["--config=smoke.yml", "--training_args.channels=16", "--training_args.att_layers_num=1",
@@ -41,7 +44,8 @@ def _metrics(run: Path) -> list[dict]:
 def test_cli_trains_saves_resumes_and_samples(tmp_path):
     res = subprocess.run([sys.executable, "-m", "dhg_torch.train", "--device=cpu", *TINY,
                           "--training_args.steps=4", f"--experiment.work_dir={tmp_path / 'a'}"],
-                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+                         cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr[-2000:]
     run = _run_dir(tmp_path / "a")
     names = {p.name for p in run.iterdir()}

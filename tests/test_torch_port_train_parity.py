@@ -24,7 +24,7 @@ from dhg_torch.train import Draws, Trainer
 from dhg_torch.weights import state_dict_from_dhg
 from test_torch_port_common import jax_model, random_params, t
 
-C1, LAYERS, B, T_LEN, L_LEN, STEPS = 16, 1, 4, 32, 14, 5
+C1, LAYERS, B, T_LEN, L_LEN, STEPS = 16, 1, 4, 16, 14, 5
 CFG = {
     "experiment": {"seed": 0},
     "dataset_args": {"max_seq_len": T_LEN, "max_text_len": L_LEN},

@@ -8,12 +8,12 @@ import torch
 from dhg.tools.export_torch_checkpoint import export_state_dict
 from dhg_torch.models.denoiser import DiffusionModel
 from dhg_torch.weights import config_from_state_dict, load_checkpoint, state_dict_from_dhg
-from test_torch_port_common import C1, N_LAYERS, init_params, port_model
+from test_torch_port_common import C1, N_LAYERS, port_model, random_params
 
 
 @pytest.fixture(scope="module")
 def params():
-    return init_params(seed=3)
+    return random_params(seed=3)
 
 
 def test_bridge_matches_exporter_key_for_key(params):

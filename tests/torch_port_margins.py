@@ -1,11 +1,13 @@
-"""Print the CPU margins of the training-path parity tests: how far each
-port function is from its dhg counterpart on the tests' own inputs, beside
-the bar the test holds it to.
+"""Print the CPU margins of the port's parity tests: how far each port
+function is from its dhg counterpart on the tests' own inputs, beside the
+bar the test holds it to.
 
-    python tests/torch_port_margins.py
+    python tests/torch_port_margins.py [section ...]
 
+Sections: attention, conv_block, optimizer, trajectory (the training path),
+t4, front_end (the T4 region and the infer front end); all by default.
 Not a test module (pytest does not collect it); it reuses the helpers of
-tests/test_torch_port_{attention_kernel,conv_kernel,train,train_parity}.py.
+the tests/test_torch_port_*.py files it names.
 """
 
 import os
@@ -110,8 +112,75 @@ def trajectory():
     print(f"{tp.STEPS}-step f32 loss trajectory vs dhg: {gap:.2g} relative (bar 1e-4)")
 
 
+def t4():
+    import test_torch_port_t4 as t4t
+
+    for n in (1, 2):
+        j, o = t4t._operands(n, seed=n)
+        ref = t4t.jk.fused_unet_t4(*t4t._args(j), num_layers=n, att_heads=6, enc5_heads=4,
+                                   rows=1, interpret=True)
+        d = np.abs(f32(t4t.tk.fused_unet_t4(*t4t._args(o), n, 6, 4)) - f32(ref))
+        print(f"unet_t4_plain vs Pallas ({n} layers): max {d.max():.3g}, median "
+              f"{np.median(d):.3g} (bar 0.05 + 0.05 |ref|, median 5e-3)")
+    params = t4t.random_params(seed=9)
+    jm, pm = t4t.jax_model(jnp.bfloat16), t4t.port_model(params, t4t.BF)
+    strokes, text, sigma, style = t4t.inputs(batch=3, seq_len=48, text_len=6, seed=12)
+
+    def run(m, s, tx, sg, st):
+        se = m.embed_sigma(sg[:1])
+        cond = m.encode_cond(tx, st, se)
+        kvs, films = m.precompute_cross_kv(cond, se), m.precompute_film(se)
+        return m._denoise_fused_t4(s, t4t.jmask(tx), kvs, films)
+
+    ref = jax.jit(lambda p, *a: jm.apply({"params": p}, *a, method=run))(
+        params, strokes, text, sigma, style)
+    os.environ["DHG_FUSED_T4"] = "1"
+    with torch.no_grad():
+        kvs, films, mask = t4t._port_context(pm, text, sigma, style)
+        ours = pm.denoise(t(strokes), None, None, mask, kvs=kvs, films=films)
+    del os.environ["DHG_FUSED_T4"]
+    for name, a, b in zip(("eps", "pen"), ours, ref):
+        d = np.abs(f32(a) - f32(b))
+        print(f"T4 denoise vs dhg's _denoise_fused_t4, {name}: max {d.max():.3g}, "
+              f"median {np.median(d):.3g} (same bar)")
+
+
+def front_end():
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+    import flax
+
+    import test_torch_port_style as ts
+    from dhg.data.images import read_img as jax_read_img
+    from dhg_torch.data.images import read_img
+
+    with tempfile.TemporaryDirectory() as tmp:
+        worst = 0
+        for seed in range(4):
+            rng = np.random.RandomState(seed)
+            img = ts._line_image(rng, 60 + 20 * seed, 230 + 150 * seed)
+            path = str(Path(tmp) / "s.png")
+            cv2.imwrite(path, img)
+            for h in (96, 40):
+                worst = max(worst, int(np.abs(read_img(path, h).astype(int)
+                                              - jax_read_img(path, h).astype(int)).max()))
+        print(f"read_img vs dhg (cv2): max {worst} grey levels (bar 1)")
+    with np.load(ts.SYNTH) as f:
+        flat = dict(f)
+    variables = flax.traverse_util.unflatten_dict(
+        {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+    img = np.random.RandomState(3).uniform(0, 255, (2, 96, 192)).astype(np.float32)
+    ref = np.asarray(jax.jit(ts.JaxStyleExtractor().apply)(variables, img))
+    with torch.no_grad():
+        ours = ts.init_style_extractor(ts.SYNTH, device="cpu")(torch.from_numpy(img)).numpy()
+    print(f"StyleExtractor vs dhg: max {np.abs(ours - ref).max():.3g} "
+          f"(bar 1e-4; largest |value| {np.abs(ref).max():.3g})")
+
+
 if __name__ == "__main__":
-    attention()
-    conv_block()
-    optimizer()
-    trajectory()
+    sections = dict(attention=attention, conv_block=conv_block, optimizer=optimizer,
+                    trajectory=trajectory, t4=t4, front_end=front_end)
+    for name in sys.argv[1:] or sections:
+        sections[name]()

@@ -9,14 +9,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
   3. kernels   — each CUDA kernel against its plain PyTorch version on the
                  card, at the shapes its path gives it. Sampler kernels
                  (canonical model, seq_len 392, 50 text tokens): bottleneck at
-                 batch 1 and 96, enc3 and enc5 at batch 96; bar rtol = atol =
-                 0.05 and median |diff| < 5e-3 (bf16). Train-path kernels
-                 (T = 480, L = 50, batch 96): fused_attention at its 7 shapes
-                 in bf16 at that bar; fused_conv_block at its 6 shapes in
-                 bf16 at that bar and in f32 at rtol = atol = 1e-4 (f32 FMAs
-                 in another sum order); beside each, SDPA's time for
-                 attention. Then each autograd.Function's backward against
-                 the plain backward. Times from CUDA events.
+                 batch 96, 1 and 256 (logged with its cluster size and how
+                 many clusters the card holds at once) and, at the 808 steps
+                 of a 50-token prompt (T8 = 101, a spilled row), at batch 96
+                 and 1; enc3 and enc5 at batch 96; bar rtol = atol = 0.05 and
+                 median |diff| < 5e-3 (bf16). Train-path kernels (T = 480,
+                 L = 50, batch 96): fused_attention at its 7 shapes in bf16
+                 at that bar; fused_conv_block at its 6 shapes in bf16 at that bar
+                 and in f32 at rtol = atol = 1e-4 (f32 FMAs in another sum
+                 order); beside each, SDPA's time for attention. Then each
+                 autograd.Function's backward against the plain backward.
+                 Times from CUDA events.
   4. denoise   — one full-width bf16 denoise with the kernels against the
                  port's plain module path (kernels off), same bar
   4b. T4       — fused_unet_t4 against unet_t4_plain at batch 96 and 1
@@ -26,12 +29,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  denoise with DHG_FUSED_T4=1 (one T4 launch, no other
                  sampler kernel) against the plain module path, same bar
   5. generate  — the sampler: sample_lines -> generate, full width, bf16,
-                 60 steps, mode "new", seq_len 392, at batch 96 and batch 1.
+                 60 steps, mode "new", seq_len 392, at batch 96 and batch 1,
+                 then a batch of 8 padded to one 49-character prompt
+                 (seq_len 808, T8 = 101: the bottleneck's spilled rows).
                  Launch counts zeroed just before each run and read just
-                 after: 60 bottleneck + 120 encoder-layer launches at batch 96,
-                 60 + 0 at batch 1, no T4 launch; output finite, [B, 392, 3].
-                 Then the same with DHG_FUSED_T4=1: 60 fused_unet_t4
-                 launches and none of the other two, at batch 96 and 1
+                 after: 60 bottleneck + 120 encoder-layer launches at batch 96
+                 and 8, 60 + 0 at batch 1, no T4 launch; output finite, each
+                 line [16 tokens + 8, 3]. Then the same with DHG_FUSED_T4=1:
+                 60 fused_unet_t4 launches and none of the other two, at
+                 batch 96 and 1
   6. timings   — denoise steps/s at batch 256 and p50 line latency at batch 1
   7. train     — the training path: dhg_torch.train.main from a config dict
                  (tools/profile_train.py::best_config, configs/best.yml's model
@@ -77,7 +83,7 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # CUDA-core float32 peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12
 SOURCES = {
-    "fused_bottleneck": "dhg_torch/kernels/csrc/encoder_layer.cu",
+    "fused_bottleneck": "dhg_torch/kernels/csrc/bottleneck.cu",
     "fused_encoder_layer": "dhg_torch/kernels/csrc/encoder_layer.cu",
     "fused_attention": "dhg_torch/kernels/csrc/attention.cu",
     "fused_conv_block": "dhg_torch/kernels/csrc/conv_block.cu",
@@ -91,6 +97,8 @@ REPLACES = {
     "fused_unet_t4": "dhg/kernels/fused_bottleneck.py:407",
 }
 INFER_PROMPT = "handwriting on the card"  # 23 characters, as the sampler phases
+LONG_PROMPT = "the quick brown fox jumps over the lazy dog again"  # 49 characters + EOS
+LONG_T8 = 101  # infer_seq_len(50) // 8
 TRAIN_B, TRAIN_STEPS = 96, 20  # T = 480 (tools/profile_train.py::best_config)
 # The training forward's attention calls at T = 480, L = 50: (label, H, Tq,
 # Tk, D, masked, launches a step).
@@ -167,14 +175,17 @@ def compare(name, got, ref, tol=0.05, median_bar=5e-3):
     return max_err
 
 
-def make_inputs(batch, seed):
-    """Token ids ([B, 50], a 23-character prompt + EOS, zero-padded) and
-    style features [B, 14, 1280], made from `seed` with numpy."""
+def make_inputs(batch, seed, long_first=False):
+    """Token ids ([B, 50], a 23-character prompt + EOS, zero-padded; with
+    long_first the first prompt is LONG_PROMPT) and style features
+    [B, 14, 1280], made from `seed` with numpy."""
     from dhg_torch.data.tokenizer import Tokenizer
 
     rng = np.random.RandomState(seed)
     alphabet = list("abcdefghijklmnopqrstuvwxyz ")
     prompts = ["".join(rng.choice(alphabet, 23)) for _ in range(batch)]
+    if long_first:
+        prompts[0] = LONG_PROMPT
     text = torch.from_numpy(Tokenizer().encode_batch(prompts, TEXT_LEN)).cuda()
     style = torch.from_numpy(rng.randn(batch, 14, 1280).astype(np.float32)).cuda()
     return prompts, text, style
@@ -193,23 +204,37 @@ def level_context(model, text, style, level=30):
 
 def kernel_phase(model, report):
     from dhg_torch.kernels import fused_bottleneck as fk
+    from dhg_torch.kernels.build import load
     from dhg_torch.models.denoiser import encoder_layer_operands
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for batch in (96, 1):
-        _, text, style = make_inputs(batch, seed=batch)
+    t8, d = SEQ_LEN // 8, model.c2 * 2
+    nl, heads = model.num_layers, model.att_layers[0].num_heads
+    tiles = model.bottleneck_tiles()
+    shapes = {}
+    for rows8 in (t8, LONG_T8):
+        shape = (rows8, model.c3, d, heads, TEXT_LEN)
+        resident = load().dhg_bottleneck_max_clusters(*shape)
+        smem, ws = fk.bottleneck_layout(*shape)
+        shapes[rows8] = dict(ctas=heads, rows_per_cluster=1, smem_bytes=smem,
+                             workspace_elems_per_row=ws, max_active_clusters=resident)
+        log(f"  bottleneck T8={rows8}: clusters of C = {heads} CTAs (one batch row each, R = 1), "
+            f"{smem} bytes of shared memory a CTA, {ws} workspace elements a row "
+            f"({'spilled' if ws else 'held in shared memory'}), {resident} clusters resident")
+    report["bottleneck_cluster"] = shapes
+    for batch, rows8 in ((96, t8), (1, t8), (256, t8), (96, LONG_T8), (1, LONG_T8)):
+        _, text, style = make_inputs(batch, seed=batch + rows8)
         kvs, films, mask = level_context(model, text, style)
-        t8 = SEQ_LEN // 8
-        x8 = torch.randn(batch, t8, model.c3, generator=gen, device="cuda").to(bf)
+        x8 = torch.randn(batch, rows8, model.c3, generator=gen, device="cuda").to(bf)
         ops = model.bottleneck_operands(x8, kvs, films, mask)
-        nl, heads = model.num_layers, model.att_layers[0].num_heads
-        cases = [("fused_bottleneck", f"bottleneck B={batch}",
-                  lambda o=ops: fk.fused_bottleneck(*o, nl, heads),
+        label = f"bottleneck B={batch}" + ("" if rows8 == t8 else f" T8={rows8}")
+        cases = [("fused_bottleneck", label,
+                  lambda o=ops: fk.fused_bottleneck(*o, nl, heads, tiles=tiles),
                   lambda o=ops: fk.bottleneck_plain(*o, nl, heads),
-                  bound(batch, t8, model.c2 * 2, heads, TEXT_LEN, cin=model.c3, n_layers=nl))]
-        if batch == 96:
+                  bound(batch, rows8, d, heads, TEXT_LEN, cin=model.c3, n_layers=nl))]
+        if batch == 96 and rows8 == t8:
             for name, layer, t, idx in (("enc3", model.enc3, SEQ_LEN // 2, 0),
                                         ("enc5", model.enc5, SEQ_LEN // 4, 1)):
                 x = torch.randn(batch, t, layer.d_out, generator=gen, device="cuda").to(bf)
@@ -225,9 +250,13 @@ def kernel_phase(model, report):
             ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
             log(f"    kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {b_ms:.5f} ms "
                 f"({b_by}; {gflop:.3f} GFLOP, {mb:.3f} MB)")
-            rows.append(dict(kernel=kname, case=label, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             gflop=gflop, mbytes=mb))
+            row = dict(kernel=kname, case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, gflop=gflop, mbytes=mb)
+            if kname == "fused_bottleneck":
+                log(f"    cluster C = {heads} CTAs, R = 1 row; grid {heads} x {batch} CTAs; "
+                    f"{b_ms / ms:.4f} of the bound")
+                row.update(cluster=heads, rows_per_cluster=1, t8=rows8)
+            rows.append(row)
     report["kernel_cases"] = rows
     return rows
 
@@ -332,32 +361,38 @@ def t4_denoise_phase(model, report):
 
 
 def sample_phase(model, label, runs, counted):
-    """sample_lines -> generate at each (batch, expected launches): counts
-    of the `counted` kernels zeroed just before each run, read just after."""
+    """sample_lines -> generate at each (batch, long_first, expected
+    launches): counts of the `counted` kernels zeroed just before each run,
+    read just after. Keyed by batch, or "<batch> long" for a batch padded
+    to LONG_PROMPT."""
+    from dhg_torch.core.sampling import infer_seq_len
     from dhg_torch.inference import sample_lines
     from dhg_torch.kernels import fused_bottleneck as fk
 
     counts = {}
-    for batch, want in runs:
-        prompts, _, style = make_inputs(batch, seed=10 + batch)
+    for batch, long_first, want in runs:
+        prompts, _, style = make_inputs(batch, seed=10 + batch, long_first=long_first)
         gen = torch.Generator(device="cuda").manual_seed(batch)
         fk.reset_launch_counts()
         lines = sample_lines(model, prompts, style, gen, diffusion_mode="new", device="cuda")
         got = tuple(fk.launches[k] for k in counted)
-        counts[batch] = got
-        shapes = {a.shape for a in lines}
+        key = f"{batch} long" if long_first else batch
+        counts[key] = got
+        shapes = [a.shape for a in lines]
         finite = all(np.isfinite(a).all() for a in lines)
-        log(f"  {label} B={batch}: launches {dict(zip(counted, got))}; "
-            f"shapes {sorted(shapes)}; finite {finite}")
+        log(f"  {label} B={key}: launches {dict(zip(counted, got))}; "
+            f"shapes {sorted(set(shapes))}; finite {finite}")
         if got != want:
-            fail(f"{label} B={batch}: launches {got}, expected {want}")
-        if shapes != {(SEQ_LEN, 3)} or len(lines) != batch or not finite:
-            fail(f"{label} B={batch}: bad output")
+            fail(f"{label} B={key}: launches {got}, expected {want}")
+        if shapes != [(infer_seq_len(len(p) + 1), 3) for p in prompts] or not finite:
+            fail(f"{label} B={key}: bad output")
     return counts
 
 
 def generate_phase(model, report):
-    counts = sample_phase(model, "generate", ((96, (60, 120, 0)), (1, (60, 0, 0))),
+    counts = sample_phase(model, "generate",
+                          ((96, False, (60, 120, 0)), (1, False, (60, 0, 0)),
+                           (8, True, (60, 120, 0))),
                           ("fused_bottleneck", "fused_encoder_layer", "fused_unet_t4"))
     report["launches"] = {str(k): v for k, v in counts.items()}
     return counts
@@ -366,7 +401,7 @@ def generate_phase(model, report):
 def t4_generate_phase(model, report):
     with env_flag("DHG_FUSED_T4", "1"):
         counts = sample_phase(model, "generate (DHG_FUSED_T4=1)",
-                              ((96, (60, 0, 0)), (1, (60, 0, 0))),
+                              ((96, False, (60, 0, 0)), (1, False, (60, 0, 0))),
                               ("fused_unet_t4", "fused_bottleneck", "fused_encoder_layer"))
     report["t4_launches"] = {str(k): v for k, v in counts.items()}
     return counts

@@ -108,8 +108,13 @@ def load() -> ctypes.CDLL:
     lib.dhg_error_string.restype = ctypes.c_char_p
     lib.dhg_fused_encoder_layer.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.dhg_fused_encoder_layer.restype = i
-    lib.dhg_fused_bottleneck.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
+    lib.dhg_fused_bottleneck.argtypes = [p, p, i, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
     lib.dhg_fused_bottleneck.restype = i
+    for name in ("dhg_bottleneck_smem_bytes", "dhg_bottleneck_workspace_elems"):
+        getattr(lib, name).argtypes = [i, i, i, i, i]
+        getattr(lib, name).restype = ctypes.c_longlong
+    lib.dhg_bottleneck_max_clusters.argtypes = [i, i, i, i, i]
+    lib.dhg_bottleneck_max_clusters.restype = i
     lib.dhg_fused_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dhg_fused_attention.restype = i
     lib.dhg_fused_conv_block.argtypes = [p, p, p, i, i, i, i, i, p]

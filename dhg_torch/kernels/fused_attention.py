@@ -6,8 +6,11 @@ fused_attention
     softmax(Q K^T * (1/sqrt(D)) + mask * -1e9) V per (batch, head), over
     q [B, H, Tq, D], k/v [B, H, Tk, D] and an optional mask [B, 1, 1, Tk]
     (1.0 = padded key), bfloat16 or float32. On CUDA tensors it runs
-    csrc/attention.cu (one block per (b*h, 64 query rows), K/V staged in
-    shared memory, f32 FMAs; see the source's note for what bounds it).
+    csrc/attention.cu: in bf16 on the tensor cores (one block of 4 warps
+    per (b*h, 64 query rows), Q/K/V staged in shared memory as bf16,
+    mma.sync tiles, logits held in registers for Tk <= 256, else two
+    passes over Q K^T); in f32 with CUDA-core FMAs (TF32 would miss the f32
+    bar). See the source's note for what bounds it.
 attention_plain
     The same function with the kernel's rounding points, in PyTorch: f32
     logits times an f32 scale plus the f32 mask bias, f32 softmax, weights
@@ -43,8 +46,19 @@ def _scale(depth: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(depth)))
 
 
-def smem_bytes(tk: int, d: int) -> int:
-    """Shared memory of one block of csrc/attention.cu (its smem_bytes)."""
+MAX_D_BF16 = 128  # kMaxD in csrc/attention.cu
+
+
+def _round16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def smem_bytes(tk: int, d: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of one block of csrc/attention.cu
+    (dhg_attention_smem_bytes): the bf16 tensor-core kernel stages 64 query
+    rows and the padded K and V as bf16; the f32 kernel K and V as f32."""
+    if dtype == torch.bfloat16:
+        return 2 * (64 + 2 * _round16(tk)) * (_round16(d) + 8)
     return 4 * (tk * (2 * d + 1) + 8 * (d + tk))
 
 
@@ -60,27 +74,41 @@ def attention_plain(q, k, v, mask=None):
 
 
 def _check(q, k, v, mask):
-    def need(cond, msg):
-        if not cond:
-            raise ValueError(f"fused_attention: {msg}")
+    """Raises unless the kernel takes these operands; each condition once,
+    a message formatted only for the one that fails."""
+    def bad(msg):
+        return ValueError(f"fused_attention: {msg}")
 
-    need(q.dim() == 4, f"q: expected [B, H, Tq, D], got {tuple(q.shape)}")
+    if q.dim() != 4:
+        raise bad(f"q: expected [B, H, Tq, D], got {tuple(q.shape)}")
     b, h, _, d = q.shape
-    need(q.dtype in DTYPES, f"q: expected bfloat16 or float32, got {q.dtype}")
-    need(q.device.type in ("cpu", "cuda"), f"unsupported device {q.device}")
+    if q.dtype not in DTYPES:
+        raise bad(f"q: expected bfloat16 or float32, got {q.dtype}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise bad(f"unsupported device {q.device}")
     tk = k.shape[2] if k.dim() == 4 else -1
     for name, t in (("k", k), ("v", v)):
-        need(t.dtype == q.dtype, f"{name}: dtype {t.dtype} != q's {q.dtype}")
-        need(t.device == q.device, f"{name}: on {t.device}, q on {q.device}")
-        need(tuple(t.shape) == (b, h, tk, d), f"{name}: shape {tuple(t.shape)} != {(b, h, tk, d)}")
+        if t.dtype != q.dtype:
+            raise bad(f"{name}: dtype {t.dtype} != q's {q.dtype}")
+        if t.device != q.device:
+            raise bad(f"{name}: on {t.device}, q on {q.device}")
+        if t.shape != (b, h, tk, d):
+            raise bad(f"{name}: shape {tuple(t.shape)} != {(b, h, tk, d)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        need(t.is_contiguous(), f"{name}: must be contiguous")
-    need(tk >= 1, "k: no keys")
-    need(smem_bytes(tk, d) <= MAX_SMEM,
-         f"Tk = {tk}, D = {d}: K and V need {smem_bytes(tk, d)} bytes of shared memory")
+        if not t.is_contiguous():
+            raise bad(f"{name}: must be contiguous")
+    if tk < 1:
+        raise bad("k: no keys")
+    if q.dtype == torch.bfloat16 and d > MAX_D_BF16:
+        raise bad(f"D = {d}: the bf16 kernel takes head dims up to {MAX_D_BF16}")
+    if smem_bytes(tk, d, q.dtype) > MAX_SMEM:
+        raise bad(f"Tk = {tk}, D = {d}: Q, K and V need {smem_bytes(tk, d, q.dtype)} bytes of "
+                  f"shared memory (at most {MAX_SMEM})")
     if mask is not None:
-        need(mask.device == q.device, f"mask: on {mask.device}, q on {q.device}")
-        need(tuple(mask.shape) == (b, 1, 1, tk), f"mask: shape {tuple(mask.shape)} != {(b, 1, 1, tk)}")
+        if mask.device != q.device:
+            raise bad(f"mask: on {mask.device}, q on {q.device}")
+        if mask.shape != (b, 1, 1, tk):
+            raise bad(f"mask: shape {tuple(mask.shape)} != {(b, 1, 1, tk)}")
 
 
 def fused_attention(q, k, v, mask=None):

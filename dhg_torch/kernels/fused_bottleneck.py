@@ -11,12 +11,19 @@ fused_unet_t4
     pool, the bottleneck, upsample, skip_conv3 and dec3 in one launch
     (DHG_FUSED_T4=1 only).
 
-The first two run csrc/encoder_layer.cu, the third csrc/unet_t4.cu, on CUDA
-tensors (one block per batch row, mma.sync tensor-core tiles, weights
-streamed from L2/HBM; see the sources' notes for what bounds them). On an
-H100 the bottleneck is tensor-core bound at batch 96-256 (~314 MFLOP a row
-at T8 = 49) and weight-bandwidth bound at batch 1 (~6.3 MB of bf16 weights),
-where one block fills 1 SM of 132.
+On CUDA tensors fused_bottleneck runs csrc/bottleneck.cu: one batch row
+over a thread-block cluster of num_heads CTAs (sm_90a, at most 8), CTA h
+computing head h's columns of every product, the row's activations in
+shared memory (gathered through distributed shared memory; a row too long
+for that spills its gathered operands to a global workspace), each CTA's
+weight slices streamed through a ring of bulk (TMA) copies from a tiled
+copy of the weights (bottleneck_tiles; 6.3 MB for the canonical model,
+made once per weight set by DiffusionModel.bottleneck_tiles).
+fused_encoder_layer runs csrc/encoder_layer.cu and fused_unet_t4
+csrc/unet_t4.cu (one block per batch row, fragments from L2, a global
+workspace). On an H100 the bottleneck is tensor-core bound at batch 96-256
+(~314 MFLOP a row at T8 = 49) and weight-bandwidth bound at batch 1 (~6.3 MB
+of bf16 weights). See the sources' notes for what bounds each.
 
 Beside each wrapper sits its plain PyTorch version with the kernel's
 rounding points (dhg's `_encoder_layer`): bf16 products with f32
@@ -45,9 +52,16 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from dhg_torch.kernels.build import MAX_SMEM
+
 PER_LAYER = 24
 PER_CONV = 14
-MAX_LAYERS = 8  # DHG_MAX_LAYERS in csrc/encoder_layer.cuh
+MAX_LAYERS = 8  # DHG_MAX_LAYERS in csrc/encoder_layer.cuh, kMaxLayers in bottleneck.cu
+MAX_CLUSTER = 8  # portable thread-block cluster size: fused_bottleneck's heads
+MAX_HELD = 128  # bottleneck.cu: T and L of a row held in shared memory
+MAX_ROWS = 256  # bottleneck.cu: T and L of a spilled row
+TILE = 64  # bottleneck.cu's weight tiles are [64, 64] bf16
+RING_BYTES = 4 * TILE * TILE * 2  # its ring: kStages tiles
 BF16 = torch.bfloat16
 
 launches = {"fused_bottleneck": 0, "fused_encoder_layer": 0, "fused_unet_t4": 0}
@@ -160,6 +174,87 @@ def unet_t4_plain(x, neg, pe4, pe8, att_w, att_b, skip3_w, skip3_b, enc4_ops, en
     return conv_block_t4_plain(xu + _conv3(h3, skip3_w, skip3_b), dec3_ops)
 
 
+# -- fused_bottleneck's launch shape ----------------------------------------
+
+
+def _up128(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+def bottleneck_layout(t: int, cin: int, d: int, num_heads: int, l: int) -> tuple[int, int]:
+    """(shared memory bytes of one CTA, global workspace elements per batch
+    row) of csrc/bottleneck.cu (its `layout`). A row that fits is held in
+    shared memory with no workspace: the slice Xh, the gathered A [T, D], R
+    (attention output + this head's Q/K/V, or the gathered FFN hidden
+    [T, 2D], or x_in), Oh, the LayerNorm partial sums and per-row (mu,
+    rstd), the ring's mbarriers, 16 bias/FiLM slots of hd, the mask bias
+    and the weight ring. A row that does not (T or L over 128, or at
+    D = 384 T over 73) spills A, x2 + PE and R to 4 T D elements of
+    workspace and keeps Xh, Q = Oh, K and V (128 or 256 rows) and the rest."""
+    hd = d // num_heads
+    rows = max(t, l)
+    tail = (_up128(8 * num_heads * t) + _up128(8 * t) + _up128(16 * 4) + _up128(32 * hd)
+            + _up128(2 * l) + RING_BYTES)
+    kp = 64 if rows <= 64 else 128
+    r = max(2 * t * (d + 8) + 2 * t * (hd + 8) + 4 * kp * (hd + 8),
+            2 * t * (2 * d + 8), 2 * t * (cin + 8))
+    held = 2 * _up128(2 * t * (hd + 8)) + _up128(2 * t * (d + 8)) + _up128(r) + tail
+    if rows <= MAX_HELD and held <= MAX_SMEM:
+        return held, 0
+    kp = 128 if rows <= 128 else 256
+    return 2 * _up128(2 * t * (hd + 8)) + 2 * _up128(2 * kp * (hd + 8)) + tail, 4 * t * d
+
+
+# Per layer, the operand index (dhg's _PER_LAYER order) of each product in
+# the order the kernel runs them: wq, wo, wv2, wq2, wk2, wo2, fc1, fc2.
+SCHEDULE = (2, 4, 10, 6, 8, 12, 14, 16)
+
+
+def _cta_tiles(w, h: int, n: int) -> torch.Tensor:
+    """CTA h's rows [h n, (h + 1) n) of a torch Linear weight w [*, K] as
+    [chunks x k-tiles, 64, 64] tiles in the order the ring streams them (64
+    output rows a chunk, k outermost within it), zero-padded, each row's 16-
+    byte chunk c stored at c ^ (row & 7) (the kernel's `load_b_tile`)."""
+    sl = w[h * n:(h + 1) * n]
+    k = sl.shape[1]
+    n_pad, k_pad = -(-n // TILE) * TILE, -(-k // TILE) * TILE
+    sl = F.pad(sl, (0, k_pad - k, 0, n_pad - n))
+    t = sl.reshape(n_pad // TILE, TILE, k_pad // TILE, 8, 8).permute(0, 2, 1, 3, 4)
+    rows = torch.arange(TILE, device=w.device)[:, None] & 7
+    idx = (torch.arange(8, device=w.device)[None, :] ^ rows)[None, None, :, :, None]
+    return torch.gather(t, 3, idx.expand(t.shape)).reshape(-1, TILE, TILE)
+
+
+def bottleneck_weights(att_w, layer_ops, num_layers: int) -> list[torch.Tensor]:
+    """att_w, then every layer's weights in the kernel's order (SCHEDULE)."""
+    return [att_w] + [layer_ops[i * PER_LAYER + j] for i in range(num_layers) for j in SCHEDULE]
+
+
+def bottleneck_tiles(weights: Sequence[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """[num_heads, tiles, 64, 64]: each CTA's slice (its rows / num_heads
+    output columns) of every weight in `weights` (bottleneck_weights' order),
+    tiled as csrc/bottleneck.cu's ring streams them, one bulk copy a tile."""
+    per_cta = [torch.cat([_cta_tiles(w, h, w.shape[0] // num_heads) for w in weights])
+               for h in range(num_heads)]
+    return torch.stack(per_cta).contiguous()
+
+
+def bottleneck_refusal(t: int, cin: int, d: int, num_heads: int, l: int) -> str | None:
+    """Why csrc/bottleneck.cu cannot take this shape, or None. The grid is
+    (num_heads, B) CTAs in clusters of num_heads, one cluster per row."""
+    if num_heads > MAX_CLUSTER:
+        return f"{num_heads} heads: a row's cluster holds at most {MAX_CLUSTER} CTAs"
+    if t > MAX_ROWS or l > MAX_ROWS:
+        return f"T = {t}, L = {l}: at most {MAX_ROWS} rows and keys"
+    if d // num_heads > 128:
+        return f"head dim {d // num_heads} > 128"
+    smem = bottleneck_layout(t, cin, d, num_heads, l)[0]
+    if smem > MAX_SMEM:
+        return (f"T = {t}, D = {d}, {num_heads} heads: a CTA needs {smem} bytes of shared "
+                f"memory (at most {MAX_SMEM})")
+    return None
+
+
 # -- checks shared by both paths --------------------------------------------
 
 
@@ -169,11 +264,14 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _check_tensor(name, t, shape, device):
-    _require(isinstance(t, torch.Tensor), f"{name}: expected a tensor")
-    _require(t.dtype == BF16, f"{name}: expected bfloat16, got {t.dtype}")
-    _require(t.device == device, f"{name}: on {t.device}, expected {device}")
-    _require(tuple(t.shape) == tuple(shape), f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-    _require(t.is_contiguous(), f"{name}: must be contiguous")
+    # Each condition once; a message is formatted only for the one that fails.
+    why = ("expected a tensor" if not isinstance(t, torch.Tensor)
+           else f"expected bfloat16, got {t.dtype}" if t.dtype != BF16
+           else f"on {t.device}, expected {device}" if t.device != device
+           else f"shape {tuple(t.shape)} != {tuple(shape)}" if t.shape != tuple(shape)
+           else "must be contiguous" if not t.is_contiguous() else None)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
 
 
 def _check_layer(ops, b, t, d, num_heads, l, device, prefix=""):
@@ -237,12 +335,19 @@ def fused_encoder_layer(x, pe, neg, layer_ops: Sequence[torch.Tensor], num_heads
 
 
 def fused_bottleneck(x, att_w, att_b, pe, neg, layer_ops: Sequence[torch.Tensor],
-                     num_layers: int, num_heads: int = 6):
-    """att_dense + num_layers EncoderLayers: x [B, T8, Cin] -> [B, T8, D] bf16."""
+                     num_layers: int, num_heads: int = 6, tiles: torch.Tensor | None = None):
+    """att_dense + num_layers EncoderLayers: x [B, T8, Cin] -> [B, T8, D] bf16.
+
+    `tiles`: bottleneck_tiles of these weights (the model passes its cached
+    copy), or None to make them here. A spilled row (bottleneck_layout) gets
+    a workspace of 4 T8 D bf16 a row: its gathered operands do not fit in
+    the cluster's shared memory."""
     d, cin = att_w.shape[0], x.shape[-1]
     b, t, l = _check_common(x, pe, neg, d, num_heads)
     _require(cin % 16 == 0, f"x: input width {cin} must be a multiple of 16")
     _require(1 <= num_layers <= MAX_LAYERS, f"num_layers {num_layers} outside [1, {MAX_LAYERS}]")
+    why = bottleneck_refusal(t, cin, d, num_heads, l)
+    _require(why is None, f"fused_bottleneck: {why}")
     _check_tensor("x", x, (b, t, cin), x.device)
     _check_tensor("att_w", att_w, (d, cin), x.device)
     _check_tensor("att_b", att_b, (d,), x.device)
@@ -253,17 +358,28 @@ def fused_bottleneck(x, att_w, att_b, pe, neg, layer_ops: Sequence[torch.Tensor]
                      x.device, prefix=f"layer {i}: ")
     if x.device.type == "cpu":
         return bottleneck_plain(x, att_w, att_b, pe, neg, layer_ops, num_layers, num_heads)
-    _forward_only([x, att_w, att_b, pe, neg, *layer_ops])
+    operands = [x, att_w, att_b, pe, neg, *layer_ops]
+    _forward_only(operands)
+    # cp.async and the 16-byte loads of x, the weights and the text K/V.
+    _require(all(o.data_ptr() % 16 == 0 for o in operands),
+             "fused_bottleneck: every operand must start on a 16-byte boundary")
     from dhg_torch.kernels.build import check_rc, load
 
     lib = load()
-    ws = torch.empty(b * lib.dhg_workspace_elems(t, d, l), dtype=BF16, device=x.device)
+    smem, ws_row = bottleneck_layout(t, cin, d, num_heads, l)
+    if (lib.dhg_bottleneck_smem_bytes(t, cin, d, num_heads, l),
+            lib.dhg_bottleneck_workspace_elems(t, cin, d, num_heads, l)) != (smem, ws_row):
+        raise RuntimeError("fused_bottleneck: bottleneck_layout disagrees with csrc/bottleneck.cu")
+    if tiles is None:
+        tiles = bottleneck_tiles(bottleneck_weights(att_w, layer_ops, num_layers), num_heads)
+    _check_tensor("tiles", tiles, (num_heads, tiles.shape[1], TILE, TILE), x.device)
+    ws = torch.empty(b * ws_row, dtype=BF16, device=x.device) if ws_row else None
     out = torch.empty((b, t, d), dtype=BF16, device=x.device)
     ptrs = _ptrs(layer_ops)
     rc = lib.dhg_fused_bottleneck(
-        x.data_ptr(), att_w.data_ptr(), att_b.data_ptr(), pe.data_ptr(), neg.data_ptr(), ptrs,
-        num_layers, out.data_ptr(), ws.data_ptr(), b, t, cin, d, num_heads, l,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), tiles.data_ptr(), tiles.shape[1], att_b.data_ptr(), pe.data_ptr(),
+        neg.data_ptr(), ptrs, num_layers, out.data_ptr(), None if ws is None else ws.data_ptr(),
+        b, t, cin, d, num_heads, l, torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_rc(lib, rc, "fused_bottleneck")
     launches["fused_bottleneck"] += 1

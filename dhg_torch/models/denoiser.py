@@ -26,13 +26,13 @@ import torch
 from torch import nn
 
 from dhg_torch import resolve_device
-from dhg_torch.kernels.fused_bottleneck import (fused_bottleneck, fused_encoder_layer,
-                                                 fused_unet_t4)
+from dhg_torch.kernels.fused_bottleneck import (bottleneck_tiles, fused_bottleneck,
+                                                 fused_encoder_layer, fused_unet_t4)
 from dhg_torch.kernels.runtime import fused_bottleneck_mode, fused_t4_mode
 from dhg_torch.models.encoder_layer import EncoderLayer
 from dhg_torch.models.text_style import TextStyleEncoder
 from dhg_torch.ops.attention import pos_embeddings
-from dhg_torch.ops.basic import FFN, Linear, create_padding_mask
+from dhg_torch.ops.basic import FFN, CastCache, Linear, create_padding_mask
 from dhg_torch.ops.conv import ConvBlock, Conv3, avg_pool_1d, upsample_nearest_1d
 
 BF16 = torch.bfloat16
@@ -54,6 +54,14 @@ def _encoder_layer_ops(layer: EncoderLayer, kv, film3) -> list[torch.Tensor]:
     return ops
 
 
+def _scheduled_linears(layer: EncoderLayer) -> tuple[Linear, ...]:
+    """A layer's Dense layers in the order the bottleneck kernel multiplies
+    them (kernels/fused_bottleneck.py SCHEDULE): wq, wo, wv2, wq2, wk2, wo2,
+    fc1, fc2."""
+    return (layer.mha.wq, layer.mha.dense, layer.mha2.wv, layer.mha2.wq, layer.mha2.wk,
+            layer.mha2.dense, layer.ffn[1], layer.ffn[3])
+
+
 def _mask_bias(text_mask: torch.Tensor) -> torch.Tensor:
     """[B, 1, 1, L] padding mask -> the kernels' additive bias [B, 1, L], bf16."""
     return (text_mask * -1e9).to(BF16)[:, 0].contiguous()
@@ -66,7 +74,7 @@ def encoder_layer_operands(layer: EncoderLayer, x, kv, film3, text_mask):
             _encoder_layer_ops(layer, kv, film3))
 
 
-class DiffusionModel(nn.Module):
+class DiffusionModel(CastCache, nn.Module):
     def __init__(self, num_layers=2, c1=128, c2=192, c3=256, drop_rate=0.0, dtype=None):
         super().__init__()
         self.num_layers, self.c1, self.c2, self.c3 = num_layers, c1, c2, c3
@@ -167,10 +175,24 @@ class DiffusionModel(nn.Module):
             ops += _encoder_layer_ops(layer, kvs[2 + i], films["attn"][2 + i])
         return x.to(BF16).contiguous(), aw, ab, pe, _mask_bias(text_mask), ops
 
+    def _bottleneck_linears(self) -> list[Linear]:
+        return [self.att_dense] + [lin for layer in self.att_layers
+                                   for lin in _scheduled_linears(layer)]
+
+    def _tiles(self, dtype):
+        weights = [lin.cast(dtype)[0] for lin in self._bottleneck_linears()]
+        return bottleneck_tiles(weights, self.att_layers[0].num_heads)
+
+    def bottleneck_tiles(self) -> torch.Tensor:
+        """fused_bottleneck's tiled copy of the bf16 weights, made once per
+        weight set (the sampler calls the kernel 60 times with the same)."""
+        return self._cached(BF16, self._tiles,
+                            params=[lin.weight for lin in self._bottleneck_linears()])
+
     def _fused_bottleneck(self, x, kvs, films, text_mask):
         return fused_bottleneck(
             *self.bottleneck_operands(x, kvs, films, text_mask),
-            self.num_layers, self.att_layers[0].num_heads,
+            self.num_layers, self.att_layers[0].num_heads, tiles=self.bottleneck_tiles(),
         )
 
     def t4_operands(self, x4, kvs, films, text_mask):

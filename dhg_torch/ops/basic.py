@@ -19,14 +19,17 @@ class CastCache:
     """Mixin: `self._cached(dtype, make)` returns make(dtype), memoized per
     `make` (one slot for each layout a module hands out) on the dtype and the
     parameters' storage and version (load_state_dict / .to() invalidate it).
-    Nothing is cached while autograd records, so gradients still flow."""
+    `params` narrows the key to the parameters make reads (default: all of
+    the module's). Nothing is cached while autograd records, so gradients
+    still flow."""
 
     _cast_cache = None
 
-    def _cached(self, dtype, make):
+    def _cached(self, dtype, make, params=None):
         if torch.is_grad_enabled():
             return make(dtype)
-        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
+        params = self.parameters() if params is None else params
+        key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
         if self._cast_cache is None:
             self._cast_cache = {}
         slot = self._cast_cache.get(make.__name__)

@@ -100,3 +100,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fa.fused_attention(big[:, :, :1].contiguous(), big, big)
     with pytest.raises(RuntimeError, match="forward-only"):
         fa.fused_attention(q.requires_grad_(True), k, v)
+
+
+def test_bf16_limits_follow_the_tensor_core_kernel():
+    """The bf16 kernel stages 64 query rows and the padded K and V as bf16:
+    at D = 64 keys fit up to 768; head dims up to 128."""
+    assert fa.smem_bytes(240, 64) == 78336
+    assert fa.smem_bytes(768, 64) <= fa.MAX_SMEM < fa.smem_bytes(769, 64)
+    bf = torch.bfloat16
+    q = torch.zeros(1, 1, 2, 64, dtype=bf)
+    kv = torch.zeros(1, 1, 769, 64, dtype=bf)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.fused_attention(q, kv, kv)
+    out = fa.fused_attention(q, kv[:, :, :768].contiguous(), kv[:, :, :768].contiguous())
+    assert out.shape == (1, 1, 2, 64)
+    wide = torch.zeros(1, 1, 4, 144, dtype=bf)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa.fused_attention(wide, wide, wide)

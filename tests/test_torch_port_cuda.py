@@ -49,17 +49,54 @@ def test_cuda_encoder_layer_matches_plain(cuda, b, t_len, d, heads, l):
     _close(ours, ref)
 
 
+# (B, T, Cin, D, L, heads, layers): the small case with 6, 3 and 8 heads,
+# then the canonical width (T8 = 49 at seq_len 392, 50 text tokens) at the
+# sampler's batches with 1 and 2 layers, 8 heads of 48, the longest row a
+# cluster's shared memory holds at D = 384 (T = 73), then spilled rows: T 74
+# (a 37-token prompt), T 101 (a 50-token one) at batch 2 and 96, T 256 with
+# 8 heads, a head dim of 128, and more than 128 keys.
+BOTTLENECK_CASES = [(3, 6, 64, 96, 7, 6, 2), (3, 6, 64, 96, 7, 3, 2), (3, 6, 64, 128, 7, 8, 2),
+                    (1, 49, 256, 384, 50, 6, 2), (96, 49, 256, 384, 50, 6, 2),
+                    (1, 49, 256, 384, 50, 6, 1), (2, 49, 256, 384, 50, 6, 1),
+                    (2, 49, 256, 384, 50, 6, 2), (5, 49, 256, 384, 50, 6, 2),
+                    (256, 49, 256, 384, 50, 6, 2), (96, 49, 256, 384, 50, 6, 1),
+                    (4, 49, 256, 384, 50, 8, 2), (4, 49, 256, 384, 50, 3, 1),
+                    (2, 73, 256, 384, 50, 6, 2), (2, 74, 256, 384, 50, 6, 2),
+                    (2, 101, 256, 384, 50, 6, 2), (96, 101, 256, 384, 50, 6, 2),
+                    (2, 256, 256, 384, 50, 8, 1), (2, 101, 256, 384, 50, 3, 1),
+                    (3, 20, 64, 96, 200, 6, 2), (5, 150, 64, 96, 7, 6, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t_len,cin,d,l", [(3, 6, 64, 96, 7), (1, 49, 256, 384, 50),
-                                             (96, 49, 256, 384, 50)])
-def test_cuda_bottleneck_matches_plain(cuda, b, t_len, cin, d, l):
-    _, o = kernel_operands(np.random.RandomState(b), b, t_len, d, 6, l, cin=cin, n_layers=2,
-                           device=cuda)
+@pytest.mark.parametrize("b,t_len,cin,d,l,heads,n_layers", BOTTLENECK_CASES)
+def test_cuda_bottleneck_matches_plain(cuda, b, t_len, cin, d, l, heads, n_layers):
+    _, o = kernel_operands(np.random.RandomState(b), b, t_len, d, heads, l, cin=cin,
+                           n_layers=n_layers, device=cuda)
+    args = (o["x"], o["aw"], o["ab"], o["pe"], o["neg"], o["ops"], n_layers, heads)
     with torch.no_grad():
-        ours = tk.fused_bottleneck(o["x"], o["aw"], o["ab"], o["pe"], o["neg"], o["ops"], 2, 6)
+        n = tk.launches["fused_bottleneck"]
+        ours = tk.fused_bottleneck(*args)
         torch.cuda.synchronize()
-        ref = tk.bottleneck_plain(o["x"], o["aw"], o["ab"], o["pe"], o["neg"], o["ops"], 2, 6)
+        assert tk.launches["fused_bottleneck"] == n + 1
+        ref = tk.bottleneck_plain(*args)
+    assert ours.shape == (b, t_len, d)
     _close(ours, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_bottleneck_clusters_fit(cuda):
+    """The canonical cluster (6 CTAs of 167,040 bytes) and a spilled one are
+    schedulable; bottleneck_layout agrees with the kernel's layout."""
+    from dhg_torch.kernels.build import load
+
+    lib = load()
+    for shape in ((49, 256, 384, 6, 50), (101, 256, 384, 6, 50)):
+        assert lib.dhg_bottleneck_max_clusters(*shape) >= 1
+    for case in BOTTLENECK_CASES:
+        b, t, cin, d, l, heads, _ = case
+        shape = (t, cin, d, heads, l)
+        assert (lib.dhg_bottleneck_smem_bytes(*shape),
+                lib.dhg_bottleneck_workspace_elems(*shape)) == tk.bottleneck_layout(*shape)
 
 
 @pytest.mark.cuda
@@ -112,23 +149,58 @@ def test_cuda_kernels_refuse_autograd(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,counts", [(8, (4, 8)), (1, (4, 0))])
-def test_cuda_generate_launch_counts(cuda, batch, counts):
+@pytest.mark.parametrize("batch,seq_len,counts", [(8, 64, (4, 8)), (1, 64, (4, 0)),
+                                                  (8, 808, (4, 8)), (1, 808, (4, 0))])
+def test_cuda_generate_launch_counts(cuda, batch, seq_len, counts):
     """Canonical widths, 4 strided steps: bottleneck once a step, enc3 and
-    enc5 twice a step when 8 <= batch <= 128."""
+    enc5 twice a step when 8 <= batch <= 128, at a short row and at the
+    808 steps of a 50-token prompt (T8 = 101: the bottleneck spills)."""
     from dhg_torch.inference import generate
     from dhg_torch.models.denoiser import DiffusionModel
 
     model = DiffusionModel.from_config({"channels": 128}, dtype=BF, device=cuda)
     rng = np.random.RandomState(0)
-    text = rng.randint(2, 73, (batch, 10))
+    text = rng.randint(2, 73, (batch, 50))
     style = rng.randn(batch, 14, 1280).astype(np.float32)
     tk.reset_launch_counts()
-    out = generate(model, text, style, torch.Generator(cuda).manual_seed(0), seq_len=64,
+    out = generate(model, text, style, torch.Generator(cuda).manual_seed(0), seq_len=seq_len,
                    n_steps=4, device=cuda)
     torch.cuda.synchronize()
-    assert out.shape == (batch, 64, 3) and torch.isfinite(out).all()
+    assert out.shape == (batch, seq_len, 3) and torch.isfinite(out).all()
     assert (tk.launches["fused_bottleneck"], tk.launches["fused_encoder_layer"]) == counts
+
+
+@pytest.mark.cuda
+def test_cuda_long_prompt_denoise_matches_plain(cuda, monkeypatch):
+    """A batch padded to a 50-token prompt (T8 = 101, a spilled row) takes
+    the bottleneck kernel, and its bf16 denoise matches the plain module
+    path."""
+    from dhg_torch.core.schedule import get_alpha_set
+    from dhg_torch.models.denoiser import DiffusionModel
+    from dhg_torch.ops.basic import create_padding_mask
+
+    model = DiffusionModel.from_config({"channels": 128}, dtype=BF, device=cuda)
+    rng = np.random.RandomState(3)
+    lengths = [50, 24, 9, 37]
+    text = np.zeros((4, 50), np.int64)
+    for i, n in enumerate(lengths):
+        text[i, :n] = rng.randint(2, 73, n)
+    text = torch.from_numpy(text).to(cuda)
+    style = torch.from_numpy(rng.randn(4, 14, 1280).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.randn(4, 808, 2).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        se = model.embed_sigma(torch.sqrt(get_alpha_set()[20]).reshape(1, 1).to(cuda))
+        cond = model.encode_cond(text, style, se)
+        kvs, films = model.precompute_cross_kv(cond, se), model.precompute_film(se)
+        mask = create_padding_mask(text)
+        tk.reset_launch_counts()
+        eps_k, pen_k = model.denoise(x, None, None, mask, kvs=kvs, films=films)
+        torch.cuda.synchronize()
+        assert tk.launches["fused_bottleneck"] == 1
+        monkeypatch.setenv("DHG_FUSED_BOTTLENECK", "0")
+        eps_p, pen_p = model.denoise(x, None, None, mask, kvs=kvs, films=films)
+    _close(eps_k, eps_p)
+    _close(pen_k, pen_p)
 
 
 def _attention_inputs(b, h, tq, tk, d, masked, dtype, device, seed=0):
@@ -141,9 +213,13 @@ def _attention_inputs(b, h, tq, tk, d, masked, dtype, device, seed=0):
     return q, k, v, mask
 
 
-# (B, H, Tq, Tk, D, masked): small cases, then the training path at T = 480:
-# text-style cross-attention, and enc3 / enc5 / att_layers cross and self.
-ATTENTION_SHAPES = [(2, 3, 5, 7, 16, False), (3, 2, 70, 33, 48, True), (96, 8, 50, 70, 48, False),
+# (B, H, Tq, Tk, D, masked): small cases (ragged Tq and Tk, Tk not a
+# multiple of 16, D 12 as at channels 32, Tk > 256 for the two-pass softmax,
+# D 128), then the training path at T = 480: text-style cross-attention, and
+# enc3 / enc5 / att_layers cross and self.
+ATTENTION_SHAPES = [(2, 3, 5, 7, 16, False), (3, 2, 70, 33, 48, True), (2, 3, 50, 70, 48, True),
+                    (2, 8, 10, 14, 12, False), (2, 2, 40, 300, 64, True),
+                    (2, 2, 17, 129, 128, True), (96, 8, 50, 70, 48, False),
                     (96, 3, 240, 50, 64, True), (96, 3, 240, 240, 64, False),
                     (96, 4, 120, 50, 64, True), (96, 4, 120, 120, 64, False),
                     (96, 6, 60, 50, 64, True), (96, 6, 60, 60, 64, False)]
@@ -166,6 +242,22 @@ def test_cuda_attention_matches_plain(cuda, shape, dtype):
         _close(ours, ref)
     else:  # f32 sums in another order
         np.testing.assert_allclose(ours.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 50, 70, 48), (4, 3, 240, 240, 64), (2, 2, 33, 41, 64),
+                                   (2, 2, 20, 300, 64), (2, 3, 40, 600, 48)])
+def test_cuda_attention_passes_match_plain(cuda, shape):
+    """Both bf16 softmax variants (logits in registers up to 256 keys, two
+    passes above), with one row whose mask leaves one key."""
+    from dhg_torch.kernels import fused_attention as fa
+
+    q, k, v, mask = _attention_inputs(*shape, True, BF, cuda)
+    mask[0, ..., 1:] = 1.0
+    ours = fa.fused_attention(q, k, v, mask)
+    _close(ours, fa.attention_plain(q, k, v, mask))
+    torch.testing.assert_close(ours[0].float(), v[0, :, :1].float().expand_as(ours[0]),
+                               rtol=0, atol=0)
 
 
 def _conv_block_inputs(b, t_len, cin, co, dtype, device, film_batch=None, seed=0):

@@ -12,7 +12,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  batch 96, 1 and 256 (logged with its cluster size and how
                  many clusters the card holds at once) and, at the 808 steps
                  of a 50-token prompt (T8 = 101, a spilled row), at batch 96
-                 and 1; enc3 and enc5 at batch 96; bar rtol = atol = 0.05 and
+                 and 1; enc3 and enc5 (fused_encoder_layer, logged with
+                 its cluster of CTAs split by sequence rows) at batch 96, 1,
+                 8 and 256, and at the 808 steps of a 50-token prompt (T =
+                 404 / 202) at batch 96; bar rtol = atol = 0.05 and
                  median |diff| < 5e-3 (bf16). Train-path kernels (T = 480,
                  L = 50, batch 96): fused_attention at its 7 shapes in bf16
                  at that bar; fused_conv_block at its 6 shapes in bf16 at that bar
@@ -38,7 +41,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  line [16 tokens + 8, 3]. Then the same with DHG_FUSED_T4=1:
                  60 fused_unet_t4 launches and none of the other two, at
                  batch 96 and 1
-  6. timings   — denoise steps/s at batch 256 and p50 line latency at batch 1
+  6. timings   — denoise steps/s at batch 256 and at batch 96 (where both
+                 sampler kernels run) and p50 line latency at batch 1
   7. train     — the training path: dhg_torch.train.main from a config dict
                  (tools/profile_train.py::best_config, configs/best.yml's model
                  and batch: channels 128, 2 layers, batch 96, T 480, bf16;
@@ -99,6 +103,7 @@ REPLACES = {
 INFER_PROMPT = "handwriting on the card"  # 23 characters, as the sampler phases
 LONG_PROMPT = "the quick brown fox jumps over the lazy dog again"  # 49 characters + EOS
 LONG_T8 = 101  # infer_seq_len(50) // 8
+LONG_SEQ = 8 * LONG_T8  # 808 steps: enc3 at T = 404, enc5 at 202
 TRAIN_B, TRAIN_STEPS = 96, 20  # T = 480 (tools/profile_train.py::best_config)
 # The training forward's attention calls at T = 480, L = 50: (label, H, Tq,
 # Tk, D, masked, launches a step).
@@ -202,10 +207,44 @@ def level_context(model, text, style, level=30):
     return model.precompute_cross_kv(cond, se), model.precompute_film(se), create_padding_mask(text)
 
 
-def kernel_phase(model, report):
+def encoder_layer_cases(model, gen):
+    """fused_encoder_layer (enc3 and enc5, the model's cached weight tiles)
+    against encoder_layer_plain: at seq_len 392 at batch 96 (the sampler's
+    shape, both layers 60 times a generate), 1, 8 and 256 (logged: the
+    model's gate keeps the kernel to 8 <= B <= 128), and at a 50-token
+    prompt's 808 steps at batch 96."""
     from dhg_torch.kernels import fused_bottleneck as fk
     from dhg_torch.kernels.build import load
     from dhg_torch.models.denoiser import encoder_layer_operands
+
+    bf = torch.bfloat16
+    rows = []
+    for batch, seq in ((96, SEQ_LEN), (1, SEQ_LEN), (8, SEQ_LEN), (256, SEQ_LEN), (96, LONG_SEQ)):
+        _, text, style = make_inputs(batch, seed=40 + batch + seq)
+        kvs, films, mask = level_context(model, text, style)
+        for name, layer, t, idx in (("enc3", model.enc3, seq // 2, 0),
+                                    ("enc5", model.enc5, seq // 4, 1)):
+            d, h = layer.d_out, layer.num_heads
+            x = torch.randn(batch, t, d, generator=gen, device="cuda").to(bf)
+            ops = encoder_layer_operands(layer, x, kvs[idx], films["attn"][idx], mask)
+            tiles = model.encoder_layer_tiles(layer)
+            label = f"{name} B={batch}" + ("" if seq == SEQ_LEN else f" T={t}")
+            b_ms, b_by, gflop, mb = bound(batch, t, d, h, TEXT_LEN)
+            row = timed_case("fused_encoder_layer", label,
+                             lambda o=ops, h=h, w=tiles: fk.fused_encoder_layer(*o, h, tiles=w),
+                             lambda o=ops, h=h: fk.encoder_layer_plain(*o, h), (b_ms, b_by))
+            ctas, tc, smem = fk.encoder_layer_layout(t, d, h)
+            resident = load().dhg_encoder_layer_max_clusters(t, d, h, TEXT_LEN)
+            log(f"    cluster of {ctas} CTAs of {tc} rows, {smem} bytes of shared memory a CTA, "
+                f"{resident} clusters resident; {row['bound_ms'] / row['ms']:.4f} of the bound")
+            rows.append(dict(row, gflop=gflop, mbytes=mb, t=t, cluster=ctas, rows_per_cta=tc,
+                             smem_bytes=smem, max_active_clusters=resident))
+    return rows
+
+
+def kernel_phase(model, report):
+    from dhg_torch.kernels import fused_bottleneck as fk
+    from dhg_torch.kernels.build import load
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -230,33 +269,14 @@ def kernel_phase(model, report):
         x8 = torch.randn(batch, rows8, model.c3, generator=gen, device="cuda").to(bf)
         ops = model.bottleneck_operands(x8, kvs, films, mask)
         label = f"bottleneck B={batch}" + ("" if rows8 == t8 else f" T8={rows8}")
-        cases = [("fused_bottleneck", label,
-                  lambda o=ops: fk.fused_bottleneck(*o, nl, heads, tiles=tiles),
-                  lambda o=ops: fk.bottleneck_plain(*o, nl, heads),
-                  bound(batch, rows8, d, heads, TEXT_LEN, cin=model.c3, n_layers=nl))]
-        if batch == 96 and rows8 == t8:
-            for name, layer, t, idx in (("enc3", model.enc3, SEQ_LEN // 2, 0),
-                                        ("enc5", model.enc5, SEQ_LEN // 4, 1)):
-                x = torch.randn(batch, t, layer.d_out, generator=gen, device="cuda").to(bf)
-                lo = encoder_layer_operands(layer, x, kvs[idx], films["attn"][idx], mask)
-                cases.append(("fused_encoder_layer", f"{name} B={batch}",
-                              lambda o=lo, h=layer.num_heads: fk.fused_encoder_layer(*o, h),
-                              lambda o=lo, h=layer.num_heads: fk.encoder_layer_plain(*o, h),
-                              bound(batch, t, layer.d_out, layer.num_heads, TEXT_LEN)))
-        for kname, label, run, plain, (b_ms, b_by, gflop, mb) in cases:
-            got = run()
-            torch.cuda.synchronize()
-            err = compare(label, got, plain())
-            ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
-            log(f"    kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {b_ms:.5f} ms "
-                f"({b_by}; {gflop:.3f} GFLOP, {mb:.3f} MB)")
-            row = dict(kernel=kname, case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, gflop=gflop, mbytes=mb)
-            if kname == "fused_bottleneck":
-                log(f"    cluster C = {heads} CTAs, R = 1 row; grid {heads} x {batch} CTAs; "
-                    f"{b_ms / ms:.4f} of the bound")
-                row.update(cluster=heads, rows_per_cluster=1, t8=rows8)
-            rows.append(row)
+        b_ms, b_by, gflop, mb = bound(batch, rows8, d, heads, TEXT_LEN, cin=model.c3, n_layers=nl)
+        row = timed_case("fused_bottleneck", label,
+                         lambda o=ops: fk.fused_bottleneck(*o, nl, heads, tiles=tiles),
+                         lambda o=ops: fk.bottleneck_plain(*o, nl, heads), (b_ms, b_by))
+        log(f"    ({gflop:.3f} GFLOP, {mb:.3f} MB) cluster C = {heads} CTAs, R = 1 row; grid "
+            f"{heads} x {batch} CTAs; {b_ms / row['ms']:.4f} of the bound")
+        rows.append(dict(row, gflop=gflop, mbytes=mb, cluster=heads, rows_per_cluster=1, t8=rows8))
+    rows += encoder_layer_cases(model, gen)
     report["kernel_cases"] = rows
     return rows
 
@@ -418,6 +438,8 @@ def timing_phase(model, report):
     big = run(256, 5)
     ms256 = cuda_ms(big, iters=2, warmup=1)
     steps_per_s = 256 * N_STEPS / (ms256 / 1e3)
+    ms96 = cuda_ms(run(96, 7), iters=2, warmup=1)
+    steps96 = 96 * N_STEPS / (ms96 / 1e3)
     one = run(1, 6)
     one()
     lat = []
@@ -431,9 +453,12 @@ def timing_phase(model, report):
         lat.append(start.elapsed_time(end) / 1e3)
     p50 = statistics.median(lat)
     log(f"  batch 256: {ms256:.1f} ms per 60-step call -> {steps_per_s:.1f} denoise steps/s")
+    log(f"  batch 96: {ms96:.1f} ms per 60-step call -> {steps96:.1f} denoise steps/s "
+        "(both sampler kernels)")
     log(f"  batch 1: p50 line latency {p50 * 1e3:.2f} ms (7 calls: "
         f"{', '.join(f'{v * 1e3:.1f}' for v in lat)})")
     report.update(denoise_steps_per_sec_b256=steps_per_s, ms_per_call_b256=ms256,
+                  denoise_steps_per_sec_b96=steps96, ms_per_call_b96=ms96,
                   p50_line_latency_s_b1=p50, line_latencies_s_b1=lat)
 
 
@@ -787,8 +812,8 @@ def main() -> None:
                    timed("fused_bottleneck", lambda r: r["case"].endswith("B=96")),
                    counts[96][0], "bottleneck B=96"),
         kernel_row("fused_encoder_layer", cases,
-                   timed("fused_encoder_layer", lambda r: r["case"].startswith("enc3")),
-                   counts[96][1], "enc3 B=96"),
+                   timed("fused_encoder_layer", lambda r: r["case"] in ("enc3 B=96", "enc5 B=96")),
+                   counts[96][1], "enc3 + enc5 B=96 (one launch of each a step)"),
         kernel_row("fused_attention", cases, timed("fused_attention", lambda r: True),
                    train_counts[0], "sum over one training forward's 9 calls, B=96, T=480"),
         kernel_row("fused_conv_block", cases, timed("fused_conv_block", lambda r: r["per_step"]),

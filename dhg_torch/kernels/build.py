@@ -102,11 +102,15 @@ def load() -> ctypes.CDLL:
     """Build if needed and load the library, with every C signature declared."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dhg_workspace_elems.argtypes = [i, i, i]
-    lib.dhg_workspace_elems.restype = ctypes.c_longlong
     lib.dhg_error_string.argtypes = [i]
     lib.dhg_error_string.restype = ctypes.c_char_p
-    lib.dhg_fused_encoder_layer.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    for name in ("dhg_encoder_layer_cluster", "dhg_encoder_layer_rows",
+                 "dhg_encoder_layer_smem_bytes"):
+        getattr(lib, name).argtypes = [i, i, i]
+        getattr(lib, name).restype = ctypes.c_longlong
+    lib.dhg_encoder_layer_max_clusters.argtypes = [i, i, i, i]
+    lib.dhg_encoder_layer_max_clusters.restype = i
+    lib.dhg_fused_encoder_layer.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, p]
     lib.dhg_fused_encoder_layer.restype = i
     lib.dhg_fused_bottleneck.argtypes = [p, p, i, p, p, p, p, i, p, p, i, i, i, i, i, i, p]
     lib.dhg_fused_bottleneck.restype = i

@@ -1,8 +1,10 @@
-// Device routines shared by the sampler's kernels (encoder_layer.cu and
-// unet_t4.cu): the mma.sync block GEMM, Dense with dhg's rounding, one
-// attention head, LayerNorm + FiLM, and one EncoderLayer.attend on one batch
-// row, at the rounding points of dhg/kernels/fused_bottleneck.py's
-// `_encoder_layer` (listed in encoder_layer.cu).
+// Device routines of unet_t4.cu, the only file that still includes this one:
+// the mma.sync block GEMM, Dense with dhg's rounding, one attention head,
+// LayerNorm + FiLM, and one EncoderLayer.attend on one batch row in one
+// thread block, at the rounding points of dhg/kernels/fused_bottleneck.py's
+// `_encoder_layer` (listed in encoder_layer.cu). This is the first port's
+// design (fragments loaded from global memory, a per-row global workspace);
+// enc3/enc5 left it for encoder_layer.cu's cluster kernel.
 
 #pragma once
 

@@ -19,7 +19,12 @@ for that spills its gathered operands to a global workspace), each CTA's
 weight slices streamed through a ring of bulk (TMA) copies from a tiled
 copy of the weights (bottleneck_tiles; 6.3 MB for the canonical model,
 made once per weight set by DiffusionModel.bottleneck_tiles).
-fused_encoder_layer runs csrc/encoder_layer.cu and fused_unet_t4
+fused_encoder_layer runs csrc/encoder_layer.cu: one batch row over a
+cluster of CTAs split by sequence rows (at most 64 rows a CTA, full width,
+so every Dense, LayerNorm and the FFN stays in the CTA; the self-attention's
+K/V are read from the peers through distributed shared memory), the layer's
+weights streamed through the same ring from encoder_layer_tiles (made once
+per weight set by DiffusionModel.encoder_layer_tiles). fused_unet_t4 runs
 csrc/unet_t4.cu (one block per batch row, fragments from L2, a global
 workspace). On an H100 the bottleneck is tensor-core bound at batch 96-256
 (~314 MFLOP a row at T8 = 49) and weight-bandwidth bound at batch 1 (~6.3 MB
@@ -60,8 +65,16 @@ MAX_LAYERS = 8  # DHG_MAX_LAYERS in csrc/encoder_layer.cuh, kMaxLayers in bottle
 MAX_CLUSTER = 8  # portable thread-block cluster size: fused_bottleneck's heads
 MAX_HELD = 128  # bottleneck.cu: T and L of a row held in shared memory
 MAX_ROWS = 256  # bottleneck.cu: T and L of a spilled row
-TILE = 64  # bottleneck.cu's weight tiles are [64, 64] bf16
-RING_BYTES = 4 * TILE * TILE * 2  # its ring: kStages tiles
+TILE = 64  # bottleneck.cu's weight tiles are [64, 64] bf16 (64 output rows in both kernels)
+RING_BYTES = 4 * TILE * TILE * 2  # its ring (tile_ring.cuh's Ring): kStages tiles
+ENC_ROWS = 64  # encoder_layer.cu: sequence rows a CTA holds
+ENC_CLUSTER = 16  # encoder_layer.cu: CTAs a row (non-portable above 8)
+ENC_HEADS = 8
+ENC_HEAD_DIM = 64
+ENC_TILE_DEPTH = 128  # encoder_layer.cu's weight tiles are [64, 128] bf16, two in its ring
+KEY_CHUNK = 64  # encoder_layer.cu: keys staged a chunk
+HELD_KEYS = 256  # encoder_layer.cu: keys staged at once (one softmax pass)
+ENC_WIDTH = 256  # encoder_layer.cu: widest row
 BF16 = torch.bfloat16
 
 launches = {"fused_bottleneck": 0, "fused_encoder_layer": 0, "fused_unet_t4": 0}
@@ -210,19 +223,19 @@ def bottleneck_layout(t: int, cin: int, d: int, num_heads: int, l: int) -> tuple
 SCHEDULE = (2, 4, 10, 6, 8, 12, 14, 16)
 
 
-def _cta_tiles(w, h: int, n: int) -> torch.Tensor:
+def _cta_tiles(w, h: int, n: int, depth: int = TILE) -> torch.Tensor:
     """CTA h's rows [h n, (h + 1) n) of a torch Linear weight w [*, K] as
-    [chunks x k-tiles, 64, 64] tiles in the order the ring streams them (64
-    output rows a chunk, k outermost within it), zero-padded, each row's 16-
-    byte chunk c stored at c ^ (row & 7) (the kernel's `load_b_tile`)."""
+    [chunks x k-tiles, 64, depth] tiles in the order the ring streams them
+    (64 output rows a chunk, k outermost within it), zero-padded, each row's
+    16-byte chunk c stored at c ^ (row & 7) (the kernels' `load_b_tile`)."""
     sl = w[h * n:(h + 1) * n]
     k = sl.shape[1]
-    n_pad, k_pad = -(-n // TILE) * TILE, -(-k // TILE) * TILE
+    n_pad, k_pad = -(-n // TILE) * TILE, -(-k // depth) * depth
     sl = F.pad(sl, (0, k_pad - k, 0, n_pad - n))
-    t = sl.reshape(n_pad // TILE, TILE, k_pad // TILE, 8, 8).permute(0, 2, 1, 3, 4)
+    t = sl.reshape(n_pad // TILE, TILE, k_pad // depth, depth // 8, 8).permute(0, 2, 1, 3, 4)
     rows = torch.arange(TILE, device=w.device)[:, None] & 7
-    idx = (torch.arange(8, device=w.device)[None, :] ^ rows)[None, None, :, :, None]
-    return torch.gather(t, 3, idx.expand(t.shape)).reshape(-1, TILE, TILE)
+    idx = (torch.arange(depth // 8, device=w.device)[None, :] ^ rows)[None, None, :, :, None]
+    return torch.gather(t, 3, idx.expand(t.shape)).reshape(-1, TILE, depth)
 
 
 def bottleneck_weights(att_w, layer_ops, num_layers: int) -> list[torch.Tensor]:
@@ -253,6 +266,58 @@ def bottleneck_refusal(t: int, cin: int, d: int, num_heads: int, l: int) -> str 
         return (f"T = {t}, D = {d}, {num_heads} heads: a CTA needs {smem} bytes of shared "
                 f"memory (at most {MAX_SMEM})")
     return None
+
+
+# -- fused_encoder_layer's launch shape ---------------------------------------
+
+
+def _encoder_layer_smem(t: int, tc: int, d: int, num_heads: int) -> int:
+    hd = d // num_heads
+    kr = max(KEY_CHUNK, -(-t // 16) * 16) if t <= HELD_KEYS else KEY_CHUNK  # keys staged at once
+    return (5 * _up128(2 * tc * (d + 8)) + 2 * _up128(2 * kr * (hd + 8))
+            + _up128(2 * tc * (kr + 8)) + _up128(8 * ENC_ROWS) + _up128(2 * kr)
+            + _up128(2 * 15 * d) + _up128(16 * 2) + 2 * TILE * ENC_TILE_DEPTH * 2)
+
+
+def encoder_layer_layout(t: int, d: int, num_heads: int) -> tuple[int, int, int]:
+    """(CTAs in a row's cluster, rows a CTA, shared memory bytes of a CTA)
+    of csrc/encoder_layer.cu (its `layout`): the fewest CTAs of at most 64
+    rows whose shared memory fits. A CTA holds X, A, Q, K2 and V2 [Tc, D + 8]
+    (fc1's hidden over K2 and V2), one head's staged keys and values [kr,
+    hd + 8] (kr: every key of a self-attention up to 256, else 64), its
+    logits [Tc, kr + 8], 64 rows' running (max, sum), the staged keys' mask
+    bias, 15 D of bias and FiLM, the ring's mbarriers and its two [64, 128]
+    tiles. Where none fits: the last layout tried (or one CTA of T rows),
+    which encoder_layer_refusal names."""
+    tc = t
+    for c in range(-(-t // ENC_ROWS), ENC_CLUSTER + 1):
+        tc = -(-t // c)
+        if _encoder_layer_smem(t, tc, d, num_heads) <= MAX_SMEM:
+            break
+    return -(-t // tc), tc, _encoder_layer_smem(t, tc, d, num_heads)
+
+
+def encoder_layer_refusal(t: int, d: int, num_heads: int) -> str | None:
+    """Why csrc/encoder_layer.cu cannot take this shape, or None."""
+    if num_heads > ENC_HEADS:
+        return f"{num_heads} heads: at most {ENC_HEADS}"
+    if d // num_heads > ENC_HEAD_DIM:
+        return f"head dim {d // num_heads} > {ENC_HEAD_DIM}"
+    if d > ENC_WIDTH:
+        return f"width {d} > {ENC_WIDTH}"
+    c, tc, smem = encoder_layer_layout(t, d, num_heads)
+    if tc > ENC_ROWS or c > ENC_CLUSTER or smem > MAX_SMEM:
+        return (f"T = {t} at width {d}: a row takes at most {ENC_CLUSTER} CTAs of at most "
+                f"{ENC_ROWS} rows within {MAX_SMEM} bytes of shared memory each "
+                f"(T <= {ENC_CLUSTER * ENC_ROWS} at width 192)")
+    return None
+
+
+def encoder_layer_tiles(weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[tiles, 64, 128]: one layer's 8 weights in SCHEDULE's order, tiled as
+    csrc/encoder_layer.cu's ring streams them: every output column, in
+    tiles 128 deep (bottleneck_tiles' layout, twice as deep)."""
+    return torch.cat([_cta_tiles(w, 0, w.shape[0], ENC_TILE_DEPTH) for w in weights]).contiguous()
 
 
 # -- checks shared by both paths --------------------------------------------
@@ -310,24 +375,40 @@ def _ptrs(ops) -> ctypes.Array:
 # -- the wrappers -------------------------------------------------------------
 
 
-def fused_encoder_layer(x, pe, neg, layer_ops: Sequence[torch.Tensor], num_heads: int):
-    """One EncoderLayer.attend: x [B, T, D] bf16 -> [B, T, D] bf16."""
+def fused_encoder_layer(x, pe, neg, layer_ops: Sequence[torch.Tensor], num_heads: int,
+                        tiles: torch.Tensor | None = None):
+    """One EncoderLayer.attend: x [B, T, D] bf16 -> [B, T, D] bf16.
+
+    `tiles`: encoder_layer_tiles of these weights (the model passes its
+    cached copy), or None to make them here."""
     d = x.shape[-1]
     b, t, l = _check_common(x, pe, neg, d, num_heads)
+    why = encoder_layer_refusal(t, d, num_heads)
+    _require(why is None, f"fused_encoder_layer: {why}")
     _check_tensor("x", x, (b, t, d), x.device)
     _check_layer(layer_ops, b, t, d, num_heads, l, x.device)
     if x.device.type == "cpu":
         return encoder_layer_plain(x, pe, neg, layer_ops, num_heads)
-    _forward_only([x, pe, neg, *layer_ops])
+    operands = [x, pe, neg, *layer_ops]
+    _forward_only(operands)
+    # cp.async and the 16-byte loads of x, PE and the text K/V.
+    _require(all(o.data_ptr() % 16 == 0 for o in operands),
+             "fused_encoder_layer: every operand must start on a 16-byte boundary")
     from dhg_torch.kernels.build import check_rc, load
 
     lib = load()
-    ws = torch.empty(b * lib.dhg_workspace_elems(t, d, l), dtype=BF16, device=x.device)
+    if (lib.dhg_encoder_layer_cluster(t, d, num_heads), lib.dhg_encoder_layer_rows(t, d, num_heads),
+            lib.dhg_encoder_layer_smem_bytes(t, d, num_heads)) != encoder_layer_layout(t, d, num_heads):
+        raise RuntimeError("fused_encoder_layer: encoder_layer_layout disagrees with "
+                           "csrc/encoder_layer.cu")
+    if tiles is None:
+        tiles = encoder_layer_tiles([layer_ops[j] for j in SCHEDULE])
+    _check_tensor("tiles", tiles, (tiles.shape[0], TILE, ENC_TILE_DEPTH), x.device)
     out = torch.empty_like(x)
-    ptrs = _ptrs(layer_ops)
     rc = lib.dhg_fused_encoder_layer(
-        x.data_ptr(), pe.data_ptr(), neg.data_ptr(), ptrs, out.data_ptr(), ws.data_ptr(),
-        b, t, d, num_heads, l, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), pe.data_ptr(), neg.data_ptr(), _ptrs(layer_ops), tiles.data_ptr(),
+        tiles.shape[0], out.data_ptr(), b, t, d, num_heads, l,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     check_rc(lib, rc, "fused_encoder_layer")
     launches["fused_encoder_layer"] += 1

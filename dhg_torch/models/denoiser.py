@@ -26,8 +26,9 @@ import torch
 from torch import nn
 
 from dhg_torch import resolve_device
-from dhg_torch.kernels.fused_bottleneck import (bottleneck_tiles, fused_bottleneck,
-                                                 fused_encoder_layer, fused_unet_t4)
+from dhg_torch.kernels.fused_bottleneck import (bottleneck_tiles, encoder_layer_tiles,
+                                                 fused_bottleneck, fused_encoder_layer,
+                                                 fused_unet_t4)
 from dhg_torch.kernels.runtime import fused_bottleneck_mode, fused_t4_mode
 from dhg_torch.models.encoder_layer import EncoderLayer
 from dhg_torch.models.text_style import TextStyleEncoder
@@ -161,9 +162,21 @@ class DiffusionModel(CastCache, nn.Module):
         unreachable "auto" branch)."""
         return fused_t4_mode(device) == "on" and self._sampler_context(kvs, films)
 
+    @staticmethod
+    def encoder_layer_tiles(layer: EncoderLayer) -> torch.Tensor:
+        """fused_encoder_layer's tiled copy of one layer's bf16 weights, made
+        once per weight set and kept in the layer's cast cache."""
+        linears = _scheduled_linears(layer)
+
+        def kernel_tiles(dtype):
+            return encoder_layer_tiles([lin.cast(dtype)[0] for lin in linears])
+
+        return layer._cached(BF16, kernel_tiles, params=[lin.weight for lin in linears])
+
     def _fused_layer(self, layer, x, kv, film3, text_mask):
         return fused_encoder_layer(
-            *encoder_layer_operands(layer, x, kv, film3, text_mask), layer.num_heads
+            *encoder_layer_operands(layer, x, kv, film3, text_mask), layer.num_heads,
+            tiles=self.encoder_layer_tiles(layer),
         )
 
     def bottleneck_operands(self, x, kvs, films, text_mask):

@@ -14,10 +14,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from dhg_torch.ops.attention import MultiHeadAttention, pos_embeddings
-from dhg_torch.ops.basic import FFN, AffineTransformLayer, Linear, dropout, layer_norm
+from dhg_torch.ops.basic import FFN, AffineTransformLayer, CastCache, Linear, dropout, layer_norm
 
 
-class EncoderLayer(nn.Module):
+class EncoderLayer(CastCache, nn.Module):
     def __init__(
         self,
         d_out: int,

@@ -35,9 +35,22 @@ def _close(a, b):
     assert np.median(np.abs(a - b)) < 5e-3
 
 
+# (B, T, D, heads, L): a small case, enc3 and enc5 at seq_len 392 and batch
+# 96, 1 and 8; T 37 (one CTA) and 131 (3 CTAs of 44, the last 43: no
+# multiple of 16 or of the cluster); a 50-token prompt's enc3 and enc5 (T
+# 404 over 7 CTAs and 202 over 4); the longest rows (T 1024 at enc3's width,
+# a non-portable 16-CTA cluster, two-pass self-attention; 512 at enc5's);
+# more than 64 and more than 256 text keys; one head of 64 and 8 of 16.
+ENCODER_LAYER_CASES = [(8, 24, 48, 3, 7), (96, 196, 192, 3, 50), (96, 98, 256, 4, 50),
+                       (1, 196, 192, 3, 50), (1, 98, 256, 4, 50), (8, 196, 192, 3, 50),
+                       (8, 98, 256, 4, 50), (4, 37, 192, 3, 50), (4, 131, 192, 3, 50),
+                       (96, 404, 192, 3, 50), (96, 202, 256, 4, 50), (2, 1024, 192, 3, 50),
+                       (2, 512, 256, 4, 50), (3, 98, 256, 4, 100), (3, 60, 64, 4, 300),
+                       (3, 70, 64, 1, 20), (3, 70, 128, 8, 20)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t_len,d,heads,l", [(8, 24, 48, 3, 7), (96, 196, 192, 3, 50),
-                                               (96, 98, 256, 4, 50)])
+@pytest.mark.parametrize("b,t_len,d,heads,l", ENCODER_LAYER_CASES)
 def test_cuda_encoder_layer_matches_plain(cuda, b, t_len, d, heads, l):
     _, o = kernel_operands(np.random.RandomState(d), b, t_len, d, heads, l, device=cuda)
     with torch.no_grad():
@@ -47,6 +60,19 @@ def test_cuda_encoder_layer_matches_plain(cuda, b, t_len, d, heads, l):
         assert tk.launches["fused_encoder_layer"] == n + 1
         ref = tk.encoder_layer_plain(o["x"], o["pe"], o["neg"], o["ops"], heads)
     _close(ours, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_layer_clusters_fit(cuda):
+    """encoder_layer_layout agrees with the kernel's layout at every case,
+    and the card schedules a cluster of each (16 CTAs included)."""
+    from dhg_torch.kernels.build import load
+
+    lib = load()
+    for _, t, d, heads, l in ENCODER_LAYER_CASES:
+        assert (lib.dhg_encoder_layer_cluster(t, d, heads), lib.dhg_encoder_layer_rows(t, d, heads),
+                lib.dhg_encoder_layer_smem_bytes(t, d, heads)) == tk.encoder_layer_layout(t, d, heads)
+        assert lib.dhg_encoder_layer_max_clusters(t, d, heads, l) >= 1
 
 
 # (B, T, Cin, D, L, heads, layers): the small case with 6, 3 and 8 heads,

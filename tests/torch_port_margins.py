@@ -4,8 +4,9 @@ bar the test holds it to.
 
     python tests/torch_port_margins.py [section ...]
 
-Sections: attention, conv_block, optimizer, trajectory (the training path),
-t4, front_end (the T4 region and the infer front end); all by default.
+Sections: encoder_layer (the sampler's enc3/enc5 kernel), attention,
+conv_block, optimizer, trajectory (the training path), t4, front_end (the
+T4 region and the infer front end); all by default.
 Not a test module (pytest does not collect it); it reuses the helpers of
 the tests/test_torch_port_*.py files it names.
 """
@@ -29,6 +30,19 @@ import test_torch_port_conv_kernel as tc  # noqa: E402
 import test_torch_port_train as tt  # noqa: E402
 import test_torch_port_train_parity as tp  # noqa: E402
 from test_torch_port_common import f32, t  # noqa: E402
+
+
+def encoder_layer():
+    import test_torch_port_kernels as tkt
+
+    for b, tl, d, heads, l in [(8, 24, 48, 3, 7), (8, 12, 64, 4, 9), (2, 8, 128, 2, 5)]:
+        j, o = tkt._operands(np.random.RandomState(d), b, tl, d, heads, l)
+        ref = tkt.jk.fused_encoder_layer(j["x"], j["pe"], j["neg"], j["ops"], num_heads=heads,
+                                         rows=1, interpret=True)
+        ours = tkt.tk.fused_encoder_layer(o["x"], o["pe"], o["neg"], o["ops"], heads)
+        diff = np.abs(f32(ours) - f32(ref))
+        print(f"encoder_layer_plain vs Pallas ({b}x{tl}x{d}, {heads} heads): max "
+              f"{diff.max():.3g}, median {np.median(diff):.3g} (bar 0.05 + 0.05 |ref|, median 5e-3)")
 
 
 def attention():
@@ -180,7 +194,8 @@ def front_end():
 
 
 if __name__ == "__main__":
-    sections = dict(attention=attention, conv_block=conv_block, optimizer=optimizer,
+    sections = dict(encoder_layer=encoder_layer, attention=attention, conv_block=conv_block,
+                    optimizer=optimizer,
                     trajectory=trajectory, t4=t4, front_end=front_end)
     for name in sys.argv[1:] or sections:
         sections[name]()

@@ -25,12 +25,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  Times from CUDA events.
   4. denoise   — one full-width bf16 denoise with the kernels against the
                  port's plain module path (kernels off), same bar
-  4b. T4       — fused_unet_t4 against unet_t4_plain at batch 96 and 1
-                 (operands from the canonical model's t4_operands, [B, 98,
-                 192] -> [B, 98, 256]), same bar, CUDA events over 20
-                 launches beside the bound; then one full-width bf16
+  4b. T4       — fused_unet_t4 against unet_t4_plain at batch 96, 1, 8
+                 and 256 (operands from the canonical model's t4_operands,
+                 [B, 98, 192] -> [B, 98, 256]) and at a 50-token prompt's
+                 T4 = 202 at batch 96, same bar, CUDA events over 20
+                 launches beside the bound, each logged with its cluster of
+                 CTAs and the clusters resident; then one full-width bf16
                  denoise with DHG_FUSED_T4=1 (one T4 launch, no other
-                 sampler kernel) against the plain module path, same bar
+                 sampler kernel) against the plain module path, same bar;
+                 then the kernel's yardstick at batch 1, 96 and 256: the
+                 default path over the same region (DiffusionModel.
+                 t4_region) beside the kernel, and one whole denoise step
+                 with the flag off and on
   5. generate  — the sampler: sample_lines -> generate, full width, bf16,
                  60 steps, mode "new", seq_len 392, at batch 96 and batch 1,
                  then a batch of 8 padded to one 49-character prompt
@@ -41,8 +47,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  line [16 tokens + 8, 3]. Then the same with DHG_FUSED_T4=1:
                  60 fused_unet_t4 launches and none of the other two, at
                  batch 96 and 1
+  5b. launches — profile_sampler.py's 10-step generate at batch 1 and 96,
+                 DHG_FUSED_T4 off and on: launches, device time, idle share
   6. timings   — denoise steps/s at batch 256 and at batch 96 (where both
-                 sampler kernels run) and p50 line latency at batch 1
+                 sampler kernels run) and p50 line latency at batch 1, with
+                 DHG_FUSED_T4 off and on in the order off, on, on, off at
+                 each batch, every call reported
   7. train     — the training path: dhg_torch.train.main from a config dict
                  (tools/profile_train.py::best_config, configs/best.yml's model
                  and batch: channels 128, 2 layers, batch 96, T 480, bf16;
@@ -332,28 +342,40 @@ def t4_work(b, t4, c2, c3, d, l, n_layers):
 
 
 def t4_kernel_phase(model, report):
-    """fused_unet_t4 against unet_t4_plain at batch 96 and 1, operands from
-    the canonical model's t4_operands at one noise level."""
+    """fused_unet_t4 (the model's cached weight tiles) against unet_t4_plain
+    at batch 1, 8, 96 and 256 (seq_len 392, T4 = 98) and at a 50-token
+    prompt's T4 = 202 at batch 96, operands from the canonical model's
+    t4_operands at one noise level; each logged with its cluster of CTAs,
+    rows a CTA and clusters resident."""
     from dhg_torch.kernels import fused_bottleneck as fk
+    from dhg_torch.kernels.build import load
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     nl, h8, h5 = model.num_layers, model.att_layers[0].num_heads, model.enc5.num_heads
+    tiles, d = model.t4_tiles(), model.c2 * 2
     rows = []
-    for batch in (96, 1):
-        _, text, style = make_inputs(batch, seed=30 + batch)
+    for batch, seq in ((96, SEQ_LEN), (1, SEQ_LEN), (8, SEQ_LEN), (256, SEQ_LEN), (96, LONG_SEQ)):
+        _, text, style = make_inputs(batch, seed=30 + batch + seq)
         kvs, films, mask = level_context(model, text, style)
-        x4 = torch.randn(batch, SEQ_LEN // 4, model.c2, generator=gen, device="cuda")
+        t4 = seq // 4
+        x4 = torch.randn(batch, t4, model.c2, generator=gen, device="cuda")
         ops = model.t4_operands(x4.to(torch.bfloat16), kvs, films, mask)
         flat = [t for o in ops for t in (o if isinstance(o, list) else [o])]
-        flops = t4_work(batch, SEQ_LEN // 4, model.c2, model.c3, model.c2 * 2, TEXT_LEN, nl)
-        out_bytes = 2 * batch * x4.shape[1] * model.c3
-        bytes_ = sum(t.numel() * t.element_size() for t in flat) + out_bytes
-        row = timed_case("fused_unet_t4", f"T4 region B={batch}",
-                         lambda o=ops: fk.fused_unet_t4(*o, nl, h8, h5),
+        flops = t4_work(batch, t4, model.c2, model.c3, d, TEXT_LEN, nl)
+        bytes_ = sum(t.numel() * t.element_size() for t in flat) + 2 * batch * t4 * model.c3
+        label = f"T4 region B={batch}" + ("" if seq == SEQ_LEN else f" T4={t4}")
+        row = timed_case("fused_unet_t4", label,
+                         lambda o=ops: fk.fused_unet_t4(*o, nl, h8, h5, tiles=tiles),
                          lambda o=ops: fk.unet_t4_plain(*o, nl, h8, h5),
                          roofline(flops, bytes_, H100_BF16_FLOPS))
-        log(f"    ({flops / 1e9:.4f} GFLOP, {bytes_ / 1e6:.3f} MB)")
-        rows.append(dict(row, gflop=flops / 1e9, mbytes=bytes_ / 1e6))
+        shape = (t4, model.c2, model.c3, d, h5, h8)
+        ctas, tc, kr, smem = fk.t4_layout(*shape)
+        resident = load().dhg_unet_t4_max_clusters(*shape, TEXT_LEN)
+        log(f"    ({flops / 1e9:.4f} GFLOP, {bytes_ / 1e6:.3f} MB) cluster of {ctas} CTAs of "
+            f"{tc} rows ({kr} keys staged), {smem} bytes of shared memory a CTA, {resident} "
+            f"clusters resident; {row['bound_ms'] / row['ms']:.4f} of the bound")
+        rows.append(dict(row, gflop=flops / 1e9, mbytes=bytes_ / 1e6, t4=t4, cluster=ctas,
+                         rows_per_cta=tc, smem_bytes=smem, max_active_clusters=resident))
     report["t4_kernel_cases"] = rows
     return rows
 
@@ -378,6 +400,60 @@ def t4_denoise_phase(model, report):
         eps_p, pen_p = model.denoise(x, None, None, mask, kvs=kvs, films=films)
     report["t4_denoise_eps_max_abs_err"] = compare("T4 denoise eps (kernel vs plain)", eps_k, eps_p)
     report["t4_denoise_pen_max_abs_err"] = compare("T4 denoise pen (kernel vs plain)", pen_k, pen_p)
+
+
+def region_phase(model, report):
+    """The T4 kernel's yardstick, at batch 1, 96 and 256 (seq_len 392): the
+    default path over the region fused_unet_t4 computes (DiffusionModel.
+    t4_region: enc4, enc5, pool, the bottleneck, upsample, skip_conv3, dec3,
+    with the default kernels) beside the T4 kernel on the same pooled h2;
+    then one whole bf16 denoise step with DHG_FUSED_T4 off and on. CUDA
+    events; operands made once outside the timed calls."""
+    from dhg_torch.kernels import fused_bottleneck as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    nl, h8, h5 = model.num_layers, model.att_layers[0].num_heads, model.enc5.num_heads
+    rows = []
+    for batch in (1, 96, 256):
+        _, text, style = make_inputs(batch, seed=50 + batch)
+        kvs, films, mask = level_context(model, text, style)
+        x4 = torch.randn(batch, SEQ_LEN // 4, model.c2, generator=gen, device="cuda")
+        x4 = x4.to(torch.bfloat16)
+        x = torch.randn(batch, SEQ_LEN, 2, generator=gen, device="cuda")
+        iters = 20 if batch < 256 else 10
+        ops, tiles = model.t4_operands(x4, kvs, films, mask), model.t4_tiles()
+        row = dict(batch=batch,
+                   region_default_ms=cuda_ms(lambda: model.t4_region(x4, mask, kvs, films), iters),
+                   t4_kernel_ms=cuda_ms(lambda: fk.fused_unet_t4(*ops, nl, h8, h5, tiles=tiles),
+                                        iters))
+        for flag in ("0", "1"):
+            with env_flag("DHG_FUSED_T4", flag):
+                row[f"denoise_step_ms_t4_{flag}"] = cuda_ms(
+                    lambda: model.denoise(x, None, None, mask, kvs=kvs, films=films), iters)
+        log(f"  B={batch}: region default path {row['region_default_ms']:.4f} ms, T4 kernel "
+            f"{row['t4_kernel_ms']:.4f} ms; denoise step flag off {row['denoise_step_ms_t4_0']:.4f}"
+            f" ms, on {row['denoise_step_ms_t4_1']:.4f} ms")
+        rows.append(row)
+    report["t4_yardstick"] = rows
+
+
+def launch_profile_phase(model, report):
+    """profile_sampler.py's 10-step generate at batch 1 and 96, DHG_FUSED_T4
+    off and on: kernel launches, device time and idle share of the call."""
+    from dhg_torch.tools.profile_sampler import profile_batch
+
+    out = {}
+    for flag in ("0", "1"):
+        with env_flag("DHG_FUSED_T4", flag):
+            for batch in (1, 96):
+                r = profile_batch(model, batch, 10, None)
+                out[f"b{batch}_t4_{flag}"] = {k: r[k] for k in
+                                              ("wall_ms", "device_ms", "idle_share",
+                                               "n_kernel_launches")}
+                log(f"  B={batch} DHG_FUSED_T4={flag}: {r['n_kernel_launches']} launches, "
+                    f"device {r['device_ms']:.2f} ms, wall {r['wall_ms']:.1f} ms, idle "
+                    f"{r['idle_share']:.3f}")
+    report["t4_launch_profile"] = out
 
 
 def sample_phase(model, label, runs, counted):
@@ -428,6 +504,11 @@ def t4_generate_phase(model, report):
 
 
 def timing_phase(model, report):
+    """denoise steps/s at batch 256 and 96 and the p50 line latency at batch
+    1, with DHG_FUSED_T4 off (the default) and on. Each batch is warmed on
+    both sides, then timed in the order off, on, on, off (one call a side at
+    256 and 96, four at 1), so a host that drifts through the run weighs on
+    both sides alike; every call is reported."""
     from dhg_torch.inference import generate
 
     def run(batch, seed):
@@ -435,31 +516,46 @@ def timing_phase(model, report):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         return lambda: generate(model, text, style, gen, seq_len=SEQ_LEN, device="cuda")
 
-    big = run(256, 5)
-    ms256 = cuda_ms(big, iters=2, warmup=1)
-    steps_per_s = 256 * N_STEPS / (ms256 / 1e3)
-    ms96 = cuda_ms(run(96, 7), iters=2, warmup=1)
-    steps96 = 96 * N_STEPS / (ms96 / 1e3)
-    one = run(1, 6)
-    one()
-    lat = []
-    for _ in range(7):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    def call_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        one()
+        fn()
         end.record()
         end.synchronize()
-        lat.append(start.elapsed_time(end) / 1e3)
-    p50 = statistics.median(lat)
-    log(f"  batch 256: {ms256:.1f} ms per 60-step call -> {steps_per_s:.1f} denoise steps/s")
-    log(f"  batch 96: {ms96:.1f} ms per 60-step call -> {steps96:.1f} denoise steps/s "
-        "(both sampler kernels)")
-    log(f"  batch 1: p50 line latency {p50 * 1e3:.2f} ms (7 calls: "
-        f"{', '.join(f'{v * 1e3:.1f}' for v in lat)})")
-    report.update(denoise_steps_per_sec_b256=steps_per_s, ms_per_call_b256=ms256,
-                  denoise_steps_per_sec_b96=steps96, ms_per_call_b96=ms96,
-                  p50_line_latency_s_b1=p50, line_latencies_s_b1=lat)
+        return start.elapsed_time(end)
+
+    order = ("0", "1", "1", "0")
+    calls = {}
+    for batch, seed, per_side in ((256, 5, 1), (96, 7, 1), (1, 6, 4)):
+        fn = run(batch, seed)
+        for flag in ("0", "1"):
+            with env_flag("DHG_FUSED_T4", flag):
+                fn()
+        seq = []
+        for flag in order:
+            with env_flag("DHG_FUSED_T4", flag):
+                seq += [(flag, call_ms(fn)) for _ in range(per_side)]
+        calls[batch] = seq
+        log(f"  B={batch} ms per 60-step call in turn (flag off/on): "
+            + ", ".join(f"{'on' if f == '1' else 'off'} {ms:.1f}" for f, ms in seq))
+    report["t4_timing_calls"] = {str(k): v for k, v in calls.items()}
+    for flag in ("0", "1"):
+        def ms(batch):
+            return [m for f, m in calls[batch] if f == flag]
+
+        ms256, ms96 = statistics.mean(ms(256)), statistics.mean(ms(96))
+        lat = [m / 1e3 for m in ms(1)]
+        p50 = statistics.median(lat)
+        steps256, steps96 = 256 * N_STEPS / (ms256 / 1e3), 96 * N_STEPS / (ms96 / 1e3)
+        log(f"  DHG_FUSED_T4={flag}: batch 256 {ms256:.1f} ms per 60-step call (mean of 2) -> "
+            f"{steps256:.1f} denoise steps/s; batch 96 {ms96:.1f} ms -> {steps96:.1f} steps/s; "
+            f"batch 1 p50 line latency {p50 * 1e3:.2f} ms ({len(lat)} calls)")
+        tag = "" if flag == "0" else "_t4"
+        report.update({f"denoise_steps_per_sec_b256{tag}": steps256, f"ms_per_call_b256{tag}": ms256,
+                       f"denoise_steps_per_sec_b96{tag}": steps96, f"ms_per_call_b96{tag}": ms96,
+                       f"p50_line_latency_s_b1{tag}": p50, f"line_latencies_s_b1{tag}": lat})
 
 
 def roofline(flops, bytes_, peak):
@@ -787,12 +883,16 @@ def main() -> None:
         cases += t4_kernel_phase(model, report)
         log("== denoise through the T4 kernel against the plain module path")
         t4_denoise_phase(model, report)
+        log("== the T4 kernel's yardstick: the default path over its region, a denoise step")
+        region_phase(model, report)
     log("== backward of the autograd.Functions against the plain backward")
     gradient_phase(report)
     log("== sampler: sample_lines -> generate")
     counts = generate_phase(model, report)
     t4_counts = t4_generate_phase(model, report)
-    log("== timings")
+    log("== launches of a 10-step generate (profile_sampler.py), DHG_FUSED_T4 off and on")
+    launch_profile_phase(model, report)
+    log("== timings (DHG_FUSED_T4 off, on, on, off at each batch)")
     timing_phase(model, report)
     del model
     torch.cuda.empty_cache()

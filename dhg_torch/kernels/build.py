@@ -123,9 +123,15 @@ def load() -> ctypes.CDLL:
     lib.dhg_fused_attention.restype = i
     lib.dhg_fused_conv_block.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.dhg_fused_conv_block.restype = i
-    lib.dhg_unet_t4_workspace_elems.argtypes = [i, i, i, i, i]
-    lib.dhg_unet_t4_workspace_elems.restype = ctypes.c_longlong
-    lib.dhg_fused_unet_t4.argtypes = [p, i, p, p, i, i, i, i, i, i, i, i, p]
+    for name in ("dhg_unet_t4_cluster", "dhg_unet_t4_rows", "dhg_unet_t4_keys",
+                 "dhg_unet_t4_smem_bytes"):
+        getattr(lib, name).argtypes = [i] * 6
+        getattr(lib, name).restype = ctypes.c_longlong
+    lib.dhg_unet_t4_tiles.argtypes = [i, i, i, i]
+    lib.dhg_unet_t4_tiles.restype = ctypes.c_longlong
+    lib.dhg_unet_t4_max_clusters.argtypes = [i] * 7
+    lib.dhg_unet_t4_max_clusters.restype = i
+    lib.dhg_fused_unet_t4.argtypes = [p, i, p, i, p] + [i] * 8 + [p]
     lib.dhg_fused_unet_t4.restype = i
     return lib
 

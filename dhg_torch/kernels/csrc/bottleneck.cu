@@ -103,7 +103,7 @@ constexpr int kMaxHeld = 128;  // T and L of a row held in shared memory
 constexpr int kMaxRows = 256;  // T and L of a spilled row
 constexpr int kMaxSmem = 232448;
 
-// Per-layer operand order, as in dhg's _PER_LAYER list (encoder_layer.cuh).
+// Per-layer operand order, as in dhg's _PER_LAYER list (row_layer.cuh).
 enum { KH, VH, WQ, BQ, WO, BO, WQ2, BQ2, WK2, BK2, WV2, BV2, WO2, BO2,
        W1, B1, W2, B2, G1, BE1, G2, BE2, G3, BE3, PER_LAYER };
 

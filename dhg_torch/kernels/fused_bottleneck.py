@@ -25,8 +25,15 @@ so every Dense, LayerNorm and the FFN stays in the CTA; the self-attention's
 K/V are read from the peers through distributed shared memory), the layer's
 weights streamed through the same ring from encoder_layer_tiles (made once
 per weight set by DiffusionModel.encoder_layer_tiles). fused_unet_t4 runs
-csrc/unet_t4.cu (one block per batch row, fragments from L2, a global
-workspace). On an H100 the bottleneck is tensor-core bound at batch 96-256
+csrc/unet_t4.cu: one batch row over a cluster of CTAs split by sequence
+rows (the fewest that fit, an even number of rows each: 2 CTAs of 50 and
+48 rows at the canonical T/4 = 98), every stage on that split with the
+row's activations in shared memory, k3 convs reading one halo row from
+each neighbour through distributed shared memory, enc5 and the
+bottleneck's layers as encoder_layer.cu's layer body, and all of the
+region's weights streamed through one ring (encoder_layer_tiles of
+t4_weights, made once per weight set by DiffusionModel.t4_tiles). On an
+H100 the bottleneck is tensor-core bound at batch 96-256
 (~314 MFLOP a row at T8 = 49) and weight-bandwidth bound at batch 1 (~6.3 MB
 of bf16 weights). See the sources' notes for what bounds each.
 
@@ -61,7 +68,7 @@ from dhg_torch.kernels.build import MAX_SMEM
 
 PER_LAYER = 24
 PER_CONV = 14
-MAX_LAYERS = 8  # DHG_MAX_LAYERS in csrc/encoder_layer.cuh, kMaxLayers in bottleneck.cu
+MAX_LAYERS = 8  # kMaxLayers in csrc/bottleneck.cu and csrc/unet_t4.cu
 MAX_CLUSTER = 8  # portable thread-block cluster size: fused_bottleneck's heads
 MAX_HELD = 128  # bottleneck.cu: T and L of a row held in shared memory
 MAX_ROWS = 256  # bottleneck.cu: T and L of a spilled row
@@ -75,6 +82,7 @@ ENC_TILE_DEPTH = 128  # encoder_layer.cu's weight tiles are [64, 128] bf16, two 
 KEY_CHUNK = 64  # encoder_layer.cu: keys staged a chunk
 HELD_KEYS = 256  # encoder_layer.cu: keys staged at once (one softmax pass)
 ENC_WIDTH = 256  # encoder_layer.cu: widest row
+T4_WIDTH = 384  # unet_t4.cu: widest EncoderLayer (c3 and the bottleneck's d)
 BF16 = torch.bfloat16
 
 launches = {"fused_bottleneck": 0, "fused_encoder_layer": 0, "fused_unet_t4": 0}
@@ -320,6 +328,83 @@ def encoder_layer_tiles(weights: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([_cta_tiles(w, 0, w.shape[0], ENC_TILE_DEPTH) for w in weights]).contiguous()
 
 
+# -- fused_unet_t4's launch shape -----------------------------------------------
+
+
+def _staged_keys(t: int) -> int:
+    """row_layer.cuh's staged_keys: keys of a self-attention staged at once."""
+    return max(KEY_CHUNK, -(-t // 16) * 16) if t <= HELD_KEYS else KEY_CHUNK
+
+
+def _t4_smem(tc: int, kr: int, c2: int, c3: int, d: int, h5: int, h8: int) -> int:
+    def conv(cin):  # input and conv1's output with halo rows, skip, conv2's output
+        return (_up128(2 * (tc + 2) * (cin + 8)) + 2 * _up128(2 * tc * (c3 + 8))
+                + _up128(2 * (tc + 2) * (c3 // 2 + 8)))
+
+    t8 = tc // 2
+    union = max(conv(c2), conv(d), 4 * _up128(2 * tc * (c3 + 8)),
+                _up128(2 * t8 * (c3 + 8)) + 4 * _up128(2 * t8 * (d + 8)))
+    hdm = max(c3 // h5, d // h8) + 8
+    return (union + _up128(2 * (tc + 2) * (c3 + 8)) + _up128(2 * t8 * (d + 8))
+            + 2 * _up128(2 * kr * hdm) + _up128(2 * tc * (kr + 8)) + _up128(8 * ENC_ROWS)
+            + _up128(2 * kr) + _up128(2 * 15 * max(c3, d)) + _up128(16 * 2)
+            + 2 * TILE * ENC_TILE_DEPTH * 2)
+
+
+def t4_layout(t4: int, c2: int, c3: int, d: int, h5: int, h8: int) -> tuple[int, int, int, int]:
+    """(CTAs in a row's cluster, T/4 rows a CTA, keys staged at once,
+    shared memory bytes of a CTA) of csrc/unet_t4.cu (its `layout`): from
+    one CTA up to 8, the first whose even number of rows a CTA (at
+    most 64) fits, with every key of enc5's self-attention staged at once
+    (up to 256) or, where that does not fit, chunks of 64. A CTA holds the
+    union of its stages' buffers (a ConvBlock's input, skip, hidden and conv2
+    output; an EncoderLayer's A, Q, K2, V2), h3 with its halo rows, x8, the
+    attention's staged keys, values and logits, 64 rows' running (max, sum),
+    the mask bias, 15 vectors of the widest layer, the ring's mbarriers and
+    its two [64, 128] tiles. Where none fits: the last layout tried, which
+    t4_refusal names."""
+    held = max(_staged_keys(t4), _staged_keys(t4 // 2))
+    shape = (1, t4, held, _t4_smem(t4, held, c2, c3, d, h5, h8))
+    for c in range(1, MAX_CLUSTER + 1):
+        tc = 2 * -(-(t4 // 2) // c)
+        for kr in (held, KEY_CHUNK):
+            shape = (-(-t4 // tc), tc, kr, _t4_smem(tc, kr, c2, c3, d, h5, h8))
+            if tc <= ENC_ROWS and shape[3] <= MAX_SMEM:
+                return shape
+    return shape
+
+
+def t4_refusal(t4: int, c2: int, c3: int, d: int, h5: int, h8: int) -> str | None:
+    """Why csrc/unet_t4.cu cannot take this shape, or None."""
+    if max(h5, h8) > ENC_HEADS:
+        return f"{h5} / {h8} heads: at most {ENC_HEADS}"
+    if max(c3 // h5, d // h8) > ENC_HEAD_DIM:
+        return f"head dims {c3 // h5} / {d // h8}: at most {ENC_HEAD_DIM}"
+    if max(c3, d) > T4_WIDTH:
+        return f"widths {c3} / {d}: at most {T4_WIDTH}"
+    _, tc, _, smem = t4_layout(t4, c2, c3, d, h5, h8)
+    if tc > ENC_ROWS or smem > MAX_SMEM:
+        return (f"T4 = {t4}: a row takes at most {MAX_CLUSTER} CTAs of at most {ENC_ROWS} rows "
+                f"within {MAX_SMEM} bytes of shared memory each ({smem} needed at {tc} rows)")
+    return None
+
+
+# Per ConvBlock, the operand index (dhg's _PER_CONV order) of each product
+# in the kernel's order: conv_skip, conv1, conv2, fc.
+CONV_SCHEDULE = (0, 2, 4, 6)
+
+
+def t4_weights(att_w, skip3_w, enc4_ops, enc5_ops, dec3_ops, att_ops,
+               num_layers: int) -> list[torch.Tensor]:
+    """Every weight of the region in the order csrc/unet_t4.cu multiplies
+    them: enc4's convs and fc, enc5 (SCHEDULE), att_dense, each attention
+    layer (SCHEDULE), skip_conv3, dec3's convs and fc. encoder_layer_tiles
+    of them is the kernel's tiled copy."""
+    return ([enc4_ops[j] for j in CONV_SCHEDULE] + [enc5_ops[j] for j in SCHEDULE] + [att_w]
+            + [att_ops[i * PER_LAYER + j] for i in range(num_layers) for j in SCHEDULE]
+            + [skip3_w] + [dec3_ops[j] for j in CONV_SCHEDULE])
+
+
 # -- checks shared by both paths --------------------------------------------
 
 
@@ -481,7 +566,8 @@ def _check_conv(ops, cin, co, device, prefix):
 def fused_unet_t4(x, neg, pe4, pe8, att_w, att_b, skip3_w, skip3_b,
                   enc4_ops: Sequence[torch.Tensor], enc5_ops: Sequence[torch.Tensor],
                   dec3_ops: Sequence[torch.Tensor], att_ops: Sequence[torch.Tensor],
-                  num_layers: int, att_heads: int = 6, enc5_heads: int = 4):
+                  num_layers: int, att_heads: int = 6, enc5_heads: int = 4,
+                  tiles: torch.Tensor | None = None):
     """The sampler's whole T/4..T/8 region: x [B, T4, c2] (pooled h2) ->
     dec3's output [B, T4, c3], bf16.
 
@@ -492,6 +578,10 @@ def fused_unet_t4(x, neg, pe4, pe8, att_w, att_b, skip3_w, skip3_b,
     x[t + k - 1, i], each with its bias; fc [Co, Co] torch Linear layout and
     bias; FiLM gamma/beta [Co/2], [Co], [Co]); enc5_ops, 24 (heads of
     c3/enc5_heads); att_ops, 24 per attention layer (heads of D/att_heads).
+    `tiles`: encoder_layer_tiles of t4_weights (the model passes its cached
+    copy), or None to make them here. A shape past the kernel's limits
+    (t4_refusal) raises on CUDA tensors; CPU tensors take unet_t4_plain at
+    every shape.
     """
     _require(x.dim() == 3 and x.device.type in ("cpu", "cuda"),
              f"x: expected [B, T4, C] on cpu or cuda, got {tuple(x.shape)} on {x.device}")
@@ -525,15 +615,28 @@ def fused_unet_t4(x, neg, pe4, pe8, att_w, att_b, skip3_w, skip3_b,
     if dev.type == "cpu":
         return unet_t4_plain(*ops[:8], enc4_ops, enc5_ops, dec3_ops, att_ops,
                              num_layers, att_heads, enc5_heads)
+    why = t4_refusal(t4, c2, c3, d, enc5_heads, att_heads)
+    _require(why is None, f"fused_unet_t4: {why}")
     _forward_only(ops)
+    # cp.async and the 16-byte loads of x, PE, the vectors and the text K/V.
+    _require(all(o.data_ptr() % 16 == 0 for o in ops),
+             "fused_unet_t4: every operand must start on a 16-byte boundary")
     from dhg_torch.kernels.build import check_rc, load
 
     lib = load()
-    ws = torch.empty(b * lib.dhg_unet_t4_workspace_elems(t4, c2, c3, d, l), dtype=BF16, device=dev)
+    shape = (t4, c2, c3, d, enc5_heads, att_heads)
+    if (lib.dhg_unet_t4_cluster(*shape), lib.dhg_unet_t4_rows(*shape),
+            lib.dhg_unet_t4_keys(*shape), lib.dhg_unet_t4_smem_bytes(*shape)) != t4_layout(*shape):
+        raise RuntimeError("fused_unet_t4: t4_layout disagrees with csrc/unet_t4.cu")
+    if tiles is None:
+        tiles = encoder_layer_tiles(t4_weights(att_w, skip3_w, enc4_ops, enc5_ops, dec3_ops,
+                                               att_ops, num_layers))
+    _check_tensor("tiles", tiles, (lib.dhg_unet_t4_tiles(c2, c3, d, num_layers), TILE,
+                                   ENC_TILE_DEPTH), dev)
     out = torch.empty((b, t4, c3), dtype=BF16, device=dev)
     rc = lib.dhg_fused_unet_t4(
-        _ptrs(ops), num_layers, out.data_ptr(), ws.data_ptr(), b, t4, c2, c3, d,
-        enc5_heads, att_heads, l, torch.cuda.current_stream(dev).cuda_stream,
+        _ptrs(ops), num_layers, tiles.data_ptr(), tiles.shape[0], out.data_ptr(), b, t4, c2, c3,
+        d, enc5_heads, att_heads, l, torch.cuda.current_stream(dev).cuda_stream,
     )
     check_rc(lib, rc, "fused_unet_t4")
     launches["fused_unet_t4"] += 1

@@ -232,6 +232,27 @@ class DiffusionModel(CastCache, nn.Module):
             conv_ops(self.dec3, cf[3]), att_ops,
         )
 
+    def _t4_modules(self) -> list[nn.Module]:
+        """The region's weighted modules in fused_unet_t4's order
+        (kernels/fused_bottleneck.py t4_weights)."""
+        def block(b):
+            return [b.conv_skip, b.conv1, b.conv2, b.fc]
+
+        return (block(self.enc4) + list(_scheduled_linears(self.enc5)) + [self.att_dense]
+                + [lin for layer in self.att_layers for lin in _scheduled_linears(layer)]
+                + [self.skip_conv3] + block(self.dec3))
+
+    def t4_tiles(self) -> torch.Tensor:
+        """fused_unet_t4's tiled copy of the region's bf16 weights, made once
+        per weight set."""
+        mods = self._t4_modules()
+
+        def t4_kernel_tiles(dtype):
+            return encoder_layer_tiles([m.gemm_rows(dtype)[0] if isinstance(m, Conv3)
+                                        else m.cast(dtype)[0] for m in mods])
+
+        return self._cached(BF16, t4_kernel_tiles, params=[m.weight for m in mods])
+
     def _denoise_fused_t4(self, strokes, text_mask, kvs, films):
         """denoise() with the whole T/4..T/8 region in one fused_unet_t4
         launch (dhg's _denoise_fused_t4): enc1-enc3 (enc3 through its plain
@@ -242,38 +263,44 @@ class DiffusionModel(CastCache, nn.Module):
         h2 = self.enc2(avg_pool_1d(h1), None, coeffs=cf[1])
         h2 = self.enc3.attend(h2, kvs[0], None, text_mask, af[0])
         x = fused_unet_t4(*self.t4_operands(avg_pool_1d(h2), kvs, films, text_mask),
-                          self.num_layers, self.att_layers[0].num_heads, self.enc5.num_heads)
+                          self.num_layers, self.att_layers[0].num_heads, self.enc5.num_heads,
+                          tiles=self.t4_tiles())
         return self._decode_tail(x, h1, h2, cf)
 
     def encode_unet(self, strokes, cond, sigma_emb, text_mask, kvs=None, films=None):
         """x_t -> (h1 [B,T,c1], h2 [B,T/2,c2], h3 [B,T/4,c3])."""
         cf = films["conv"] if films is not None else (None,) * 6
         af = films["attn"] if films is not None else (None,) * (2 + self.num_layers)
-        fuse_enc = (
-            self._can_fuse_bottleneck(kvs, films, strokes.device)
-            and 8 <= strokes.shape[0] <= 128
-        )
         x = self.input_dense(strokes, self.dtype)
         h1 = self.enc1(x, sigma_emb, coeffs=cf[0])
         h2 = self.enc2(avg_pool_1d(h1), sigma_emb, coeffs=cf[1])
         kv3 = kvs[0] if kvs is not None else self.enc3.text_kv(cond, sigma_emb)
-        if fuse_enc:
+        if self._fuse_enc(strokes, kvs, films):
             h2 = self._fused_layer(self.enc3, h2, kv3, af[0], text_mask)
         else:
             h2 = self.enc3.attend(h2, kv3, sigma_emb, text_mask, af[0])
-        h3 = self.enc4(avg_pool_1d(h2), sigma_emb, coeffs=cf[2])
-        kv5 = kvs[1] if kvs is not None else self.enc5.text_kv(cond, sigma_emb)
-        if fuse_enc:
-            h3 = self._fused_layer(self.enc5, h3, kv5, af[1], text_mask)
-        else:
-            h3 = self.enc5.attend(h3, kv5, sigma_emb, text_mask, af[1])
-        return h1, h2, h3
+        return h1, h2, self._encode_t4(avg_pool_1d(h2), cond, sigma_emb, text_mask, kvs, films)
 
-    def decode_unet(self, feats, cond, sigma_emb, text_mask, kvs=None, films=None):
-        """Bottleneck + decoder: (h1, h2, h3) -> (eps [B,T,2], pen [B,T]), float32."""
+    def _fuse_enc(self, x, kvs, films) -> bool:
+        """enc3/enc5 through fused_encoder_layer: the bottleneck's gate and
+        dhg's 8 <= B <= 128."""
+        return self._can_fuse_bottleneck(kvs, films, x.device) and 8 <= x.shape[0] <= 128
+
+    def _encode_t4(self, x4, cond, sigma_emb, text_mask, kvs, films):
+        """enc4 and enc5 on the pooled h2: -> h3 [B, T/4, c3]."""
         cf = films["conv"] if films is not None else (None,) * 6
         af = films["attn"] if films is not None else (None,) * (2 + self.num_layers)
-        h1, h2, h3 = feats
+        h3 = self.enc4(x4, sigma_emb, coeffs=cf[2])
+        kv5 = kvs[1] if kvs is not None else self.enc5.text_kv(cond, sigma_emb)
+        if self._fuse_enc(x4, kvs, films):
+            return self._fused_layer(self.enc5, h3, kv5, af[1], text_mask)
+        return self.enc5.attend(h3, kv5, sigma_emb, text_mask, af[1])
+
+    def _decode_t4(self, h3, cond, sigma_emb, text_mask, kvs, films):
+        """pool, the bottleneck, upsample + skip_conv3(h3) and dec3: -> dec3's
+        output [B, T/4, c3]."""
+        cf = films["conv"] if films is not None else (None,) * 6
+        af = films["attn"] if films is not None else (None,) * (2 + self.num_layers)
         x = avg_pool_1d(h3)
         if self._can_fuse_bottleneck(kvs, films, x.device):
             x = self._fused_bottleneck(x, kvs, films, text_mask)
@@ -282,8 +309,21 @@ class DiffusionModel(CastCache, nn.Module):
             for i, layer in enumerate(self.att_layers):
                 kv = kvs[2 + i] if kvs is not None else layer.text_kv(cond, sigma_emb)
                 x = layer.attend(x, kv, sigma_emb, text_mask, af[2 + i])
-        x = self.dec3(upsample_nearest_1d(x) + self.skip_conv3(h3, self.dtype), sigma_emb,
-                      coeffs=cf[3])
+        return self.dec3(upsample_nearest_1d(x) + self.skip_conv3(h3, self.dtype), sigma_emb,
+                         coeffs=cf[3])
+
+    def t4_region(self, x4, text_mask, kvs, films):
+        """The default path (no DHG_FUSED_T4) over the region fused_unet_t4
+        computes: pooled h2 [B, T/4, c2] -> dec3's output, in the sampler's
+        context. The same calls denoise() makes, factored out for timing."""
+        h3 = self._encode_t4(x4, None, None, text_mask, kvs, films)
+        return self._decode_t4(h3, None, None, text_mask, kvs, films)
+
+    def decode_unet(self, feats, cond, sigma_emb, text_mask, kvs=None, films=None):
+        """Bottleneck + decoder: (h1, h2, h3) -> (eps [B,T,2], pen [B,T]), float32."""
+        cf = films["conv"] if films is not None else (None,) * 6
+        h1, h2, h3 = feats
+        x = self._decode_t4(h3, cond, sigma_emb, text_mask, kvs, films)
         return self._decode_tail(x, h1, h2, cf, sigma_emb)
 
     def _decode_tail(self, x, h1, h2, cf, sigma_emb=None):

@@ -125,17 +125,33 @@ def test_cuda_bottleneck_clusters_fit(cuda):
                 lib.dhg_bottleneck_workspace_elems(*shape)) == tk.bottleneck_layout(*shape)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,t4,c2,c3,d,l,n_layers", [(2, 12, 48, 64, 96, 7, 1),
-                                                     (1, 98, 192, 256, 384, 50, 2),
-                                                     (96, 98, 192, 256, 384, 50, 2)])
-def test_cuda_unet_t4_matches_plain(cuda, b, t4, c2, c3, d, l, n_layers):
+# (B, T4, c2, c3, d, L, layers), each over the fewest CTAs that fit: the
+# small model in one CTA and over 3 CTAs of 44, 44 and 42 rows (every key
+# staged at once); the canonical widths at seq_len 392 (2 CTAs of 50 and 48
+# rows) at batch 1, 8 and 96; a 50-token prompt's T4 = 202 (4 CTAs of 52) at
+# batch 96; 3 CTAs of 36 (every enc5 key staged at once); 6 CTAs of 44, 7 of
+# 46 and 8 of 52 (T4 = 262, 314, 416); more text keys than are staged at once.
+T4_CASES = [(2, 12, 48, 64, 96, 7, 2), (2, 130, 48, 64, 96, 7, 1),
+            (1, 98, 192, 256, 384, 50, 2), (96, 98, 192, 256, 384, 50, 2),
+            (8, 98, 192, 256, 384, 50, 2), (96, 202, 192, 256, 384, 50, 2),
+            (3, 106, 192, 256, 384, 50, 2), (2, 262, 192, 256, 384, 50, 2),
+            (3, 314, 192, 256, 384, 50, 1), (1, 416, 192, 256, 384, 50, 1),
+            (2, 98, 192, 256, 384, 300, 2)]
+
+
+def _t4_args(b, t4, c2, c3, d, l, n_layers, device):
     from test_torch_port_operands import t4_operands
 
-    _, o = t4_operands(np.random.RandomState(b), b, t4, c2, c3, d, 4, 6, l, n_layers,
-                       device=cuda)
-    args = [o[k] for k in ("x", "neg", "pe4", "pe8", "aw", "ab", "sk3w", "sk3b",
+    _, o = t4_operands(np.random.RandomState(b + t4), b, t4, c2, c3, d, 4, 6, l, n_layers,
+                       device=device)
+    return [o[k] for k in ("x", "neg", "pe4", "pe8", "aw", "ab", "sk3w", "sk3b",
                            "enc4", "enc5", "dec3", "att")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t4,c2,c3,d,l,n_layers", T4_CASES)
+def test_cuda_unet_t4_matches_plain(cuda, b, t4, c2, c3, d, l, n_layers):
+    args = _t4_args(b, t4, c2, c3, d, l, n_layers, cuda)
     with torch.no_grad():
         n = tk.launches["fused_unet_t4"]
         ours = tk.fused_unet_t4(*args, n_layers, 6, 4)
@@ -144,6 +160,27 @@ def test_cuda_unet_t4_matches_plain(cuda, b, t4, c2, c3, d, l, n_layers):
         ref = tk.unet_t4_plain(*args, n_layers, 6, 4)
     assert ours.shape == (b, t4, c3)
     _close(ours, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_unet_t4_layout_and_refusal(cuda):
+    """t4_layout agrees with the kernel's layout at every case and the card
+    schedules a cluster of each; a row past the kernel's limit raises from
+    t4_refusal before any launch."""
+    from dhg_torch.kernels.build import load
+
+    lib = load()
+    for _, t4, c2, c3, d, _, _ in T4_CASES:
+        shape = (t4, c2, c3, d, 4, 6)
+        assert (lib.dhg_unet_t4_cluster(*shape), lib.dhg_unet_t4_rows(*shape),
+                lib.dhg_unet_t4_keys(*shape), lib.dhg_unet_t4_smem_bytes(*shape)) == \
+            tk.t4_layout(*shape)
+        assert lib.dhg_unet_t4_max_clusters(*shape, 50) >= 1
+    args = _t4_args(1, 420, 192, 256, 384, 50, 1, cuda)
+    n = tk.launches["fused_unet_t4"]
+    with torch.no_grad(), pytest.raises(ValueError, match="fused_unet_t4: T4 = 420"):
+        tk.fused_unet_t4(*args, 1, 6, 4)
+    assert tk.launches["fused_unet_t4"] == n
 
 
 @pytest.mark.cuda

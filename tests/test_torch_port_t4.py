@@ -3,7 +3,8 @@
 (a) its plain version against dhg's Pallas kernel in interpret mode at
 rows=1 on the same numpy-seeded bf16 operands; (b) the port's bf16 denoise
 with DHG_FUSED_T4=1 against dhg's _denoise_fused_t4 on the same weights,
-and the gate. Bar: the bf16 bar of tests/test_fused_bottleneck.py
+and the gate; (c) the kernel's host-side pieces, without JAX: the row
+split, t4_refusal's limits and the tiled weights. Bar: the bf16 bar of tests/test_fused_bottleneck.py
 (rtol = atol = 0.05, median |diff| < 5e-3). The CUDA kernel itself is held
 to the plain version on the card by tests/test_torch_port_cuda.py and
 chip_smoke.py.
@@ -147,3 +148,91 @@ def test_t4_gate(ctx, monkeypatch):
     dropped.load_state_dict(pm.state_dict())
     assert dropped.eval()._can_fuse_t4(kvs, films, cpu)
     assert not dropped.train()._can_fuse_t4(kvs, films, cpu)
+
+
+# T4 -> (CTAs, rows a CTA), the fewest CTAs that fit, at the canonical
+# widths: seq_len 392 (2 of 50 and 48) and a 50-token prompt's 202 (4 of
+# 52); the small model's 12 (one CTA); 106 (3 of 36, every enc5 key staged
+# at once); 256, 262 and 314 (5, 6 and 7 CTAs); 416 (8 of 52, the longest).
+SPLITS = [(98, 2, 50), (202, 4, 52), (12, 1, 12), (106, 3, 36), (256, 5, 52), (262, 6, 44),
+          (314, 7, 46), (416, 8, 52)]
+
+
+@pytest.mark.parametrize("t4,ctas,rows", SPLITS)
+def test_t4_row_split(t4, ctas, rows):
+    """Every CTA owns an even number of T/4 rows (so the pool's pairs and
+    the upsample's sources stay in it), at most 64, and the CTAs cover the
+    row once, in order."""
+    got = tk.t4_layout(t4, 192, 256, 384, 4, 6)
+    assert got[:2] == (ctas, rows) and got[3] <= tk.MAX_SMEM
+    split = [(r, min(rows, t4 - r)) for r in range(0, t4, rows)]  # the kernel's (first row, rows)
+    assert len(split) == ctas <= tk.MAX_CLUSTER
+    assert [r for r, _ in split] == [c * rows for c in range(ctas)]
+    assert all(n % 2 == 0 and 0 < n <= 64 for _, n in split)
+    assert sum(n for _, n in split) == t4
+
+
+def test_t4_refusal_limits():
+    """Every T4 up to 416 at the canonical widths runs (seq_len 392's 98, a
+    50-token prompt's 202); past that, and past the kernel's widths or
+    heads, t4_refusal names the limit. It binds CUDA tensors only: on the
+    CPU the wrapper computes a refused shape through unet_t4_plain."""
+    canonical = (192, 256, 384, 4, 6)
+    assert all(tk.t4_refusal(t4, *canonical) is None for t4 in range(2, 418, 2))
+    assert tk.t4_layout(106, *canonical)[2] == 112  # 3 CTAs of 36: every key of enc5 at once
+    assert tk.t4_layout(98, *canonical)[2] == tk.KEY_CHUNK  # 2 CTAs of 50: chunks of 64
+    assert "T4 = 418" in tk.t4_refusal(418, *canonical)
+    assert "widths" in tk.t4_refusal(98, 192, 512, 384, 8, 6)
+    assert "heads" in tk.t4_refusal(98, 192, 256, 576, 4, 9)
+    assert "head dims" in tk.t4_refusal(98, 192, 256, 384, 2, 6)
+    assert "T4 = 520" in tk.t4_refusal(520, C2, C3, D, 4, 6)  # the small model: 8 CTAs of 66
+    _, o = _operands(1, b=1, t4=520)
+    args = _args(o)
+    torch.testing.assert_close(tk.fused_unet_t4(*args, 1, 6, 4),
+                               tk.unet_t4_plain(*args, 1, 6, 4), rtol=0, atol=0)
+
+
+def _untile(tiles, rows, k):
+    """The [rows, k] matrix that tk._cta_tiles cut into [64, 128] tiles."""
+    nr, nk = -(-rows // 64), -(-k // 128)
+    t = tiles.reshape(nr, nk, 64, 16, 8)
+    chunk = (torch.arange(16)[None, :] ^ (torch.arange(64)[:, None] & 7))  # stored at chunk
+    logical = torch.empty_like(t)
+    logical[:, :, torch.arange(64)[:, None], chunk] = t
+    return logical.permute(0, 2, 1, 3, 4).reshape(nr * 64, nk * 128)[:rows, :k]
+
+
+def test_t4_tiles_hold_the_weights():
+    """The model's cached T4 tiles are t4_weights' matrices in the kernel's
+    order, each cut into swizzled [64, 128] tiles: untiled, each equals the
+    weight it came from, zero padding aside; the tile count is the
+    kernel's (t4_tiles in csrc/unet_t4.cu)."""
+    model = TorchModel.from_config({"channels": C1, "att_layers_num": N_LAYERS}, dtype=BF,
+                                   device="cpu", seed=2)
+    with torch.no_grad():
+        tiles = model.t4_tiles()
+        assert model.t4_tiles() is tiles  # cached per weight set
+        x4 = torch.zeros(1, 4, C2, dtype=BF)
+        kvs = [(torch.zeros(1, h, 3, w // h), torch.zeros(1, h, 3, w // h))
+               for h, w in ((3, C2), (4, C3)) + ((6, D),) * N_LAYERS]
+        films = model.precompute_film(torch.zeros(1, C1 // 4))
+        ops = model.t4_operands(x4, kvs, films, torch.zeros(1, 1, 1, 3))
+    weights = tk.t4_weights(ops[4], ops[6], *ops[8:], N_LAYERS)
+    assert len(weights) == 8 + 8 * (1 + N_LAYERS) + 2
+    start = 0
+    for w in weights:
+        n = -(-w.shape[0] // 64) * -(-w.shape[1] // 128)
+        assert torch.equal(_untile(tiles[start:start + n], *w.shape), w)
+        start += n
+    assert start == tiles.shape[0] and tiles.shape[1:] == (64, 128)
+    def n(rows, k):
+        return -(-rows // 64) * -(-k // 128)
+
+    def block(cin, co):
+        return n(co, 3 * cin) + n(co // 2, 3 * cin) + n(co, 3 * (co // 2)) + n(co, co)
+
+    def layer(d):
+        return 6 * n(d, d) + n(2 * d, d) + n(d, 2 * d)
+
+    assert start == (block(C2, C3) + layer(C3) + n(D, C3) + N_LAYERS * layer(D) + n(D, 3 * C3)
+                     + block(D, C3))

@@ -183,3 +183,22 @@ def test_grad_accum_matches_unsplit_step(monkeypatch):
         np.testing.assert_allclose(f32(a), f32(b), rtol=2e-4, atol=1e-6)
     with pytest.raises(ValueError, match="grad_accum"):
         _trainer(3)
+
+
+def test_eval_batch_matches_dhg():
+    """dhg_torch/eval.py::eval_batch against dhg's make_eval_fn (the val_freq
+    pass) on the f32 C1 = 32 model, B = 3, T = 16: the same eps (dhg's draw
+    from its key, handed to the port), equal within 1e-6."""
+    from dhg.eval import make_eval_fn
+    from dhg_torch.eval import eval_batch, eval_levels
+    from test_torch_port_common import inputs, jax_model, port_model, random_params
+
+    params = random_params(seed=3)
+    strokes, text, _, style = inputs(batch=3, seq_len=16, text_len=6, seed=5)
+    pen = (np.random.RandomState(6).rand(3, 16) < 0.3).astype(np.float32)
+    strokes3 = np.concatenate([strokes, pen[..., None]], axis=-1)
+    key = jax.random.PRNGKey(7)
+    want = jax.block_until_ready(make_eval_fn(jax_model())(params, strokes3, text, style, key))
+    eps = np.asarray(jax.random.normal(key, strokes.shape))
+    got = eval_batch(port_model(params), t(strokes3), t(text), t(style), t(eps), eval_levels())
+    np.testing.assert_allclose(f32(got), np.asarray(want), rtol=1e-6, atol=1e-6)

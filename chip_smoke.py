@@ -19,10 +19,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  median |diff| < 5e-3 (bf16). Train-path kernels (T = 480,
                  L = 50, batch 96): fused_attention at its 7 shapes in bf16
                  at that bar; fused_conv_block at its 6 shapes in bf16 at that bar
-                 and in f32 at rtol = atol = 1e-4 (f32 FMAs in another sum
-                 order); beside each, SDPA's time for attention. Then each
-                 autograd.Function's backward against the plain backward.
-                 Times from CUDA events.
+                 and in f32 at rtol = atol = 1e-4 (3xTF32 tensor-core
+                 products, sums in another order), each logged with its tile,
+                 ring slots and CTAs resident, then at ragged T (1, 2, 17 and
+                 the 62-row tile - 1 and + 1) in both types, and in f32 at
+                 dec3's widths against conv_block_plain in float64 (within
+                 1e-5 of the output's scale); beside each attention case,
+                 SDPA's time. Then each autograd.Function's backward against
+                 the plain backward. Times from CUDA events.
   4. denoise   — one full-width bf16 denoise with the kernels against the
                  port's plain module path (kernels off), same bar
   4b. T4       — fused_unet_t4 against unet_t4_plain at batch 96, 1, 8
@@ -95,6 +99,9 @@ TEXT_LEN = 50  # sample_lines' max_text_len
 N_STEPS = 60
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # CUDA-core float32 peak, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak, H100 SXM data sheet
+# f32-accurate products on the tensor cores as three TF32 products (3xTF32).
+H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_BYTES_PER_S = 3.35e12
 SOURCES = {
     "fused_bottleneck": "dhg_torch/kernels/csrc/bottleneck.cu",
@@ -127,6 +134,10 @@ TRAIN_ATTENTION = [("text-style cross", 8, TEXT_LEN, 70, 48, False, 1),
 # Its ConvBlocks: (label, T, Cin, Co).
 TRAIN_CONV = [("enc1", 480, 128, 128), ("enc2", 240, 128, 192), ("enc4", 120, 192, 256),
               ("dec3", 120, 384, 256), ("dec2", 240, 256, 192), ("dec1", 480, 192, 128)]
+# Ragged T around the conv block kernel's 62-row tile, at training widths:
+# (B, T, Cin, Co).
+CONV_RAGGED = [(8, 1, 384, 256), (8, 2, 128, 192), (8, 17, 192, 256), (8, 61, 256, 192),
+               (8, 62, 384, 256), (8, 63, 192, 128), (8, 125, 128, 128)]
 
 
 def fail(msg: str) -> None:
@@ -577,11 +588,43 @@ def timed_case(kname, label, run, plain, bound_, library=None, tol=0.05, median_
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
+def conv_block_operands(b, t, cin, co, gen):
+    """(the 14 f32 operands, x in f32 [b, t, cin]) of one ConvBlock at its
+    initialisation's scale, FiLM per row."""
+    c2 = co // 2
+
+    def r(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    ops = [r(3, cin, co, scale=(3 * cin) ** -0.5), r(co, scale=0.1),
+           r(3, cin, c2, scale=(3 * cin) ** -0.5), r(c2, scale=0.1),
+           r(3, c2, co, scale=(3 * c2) ** -0.5), r(co, scale=0.1),
+           r(co, co, scale=co ** -0.5), r(co, scale=0.1)]
+    for c in (c2, co, co):  # FiLM gamma, beta per row
+        ops += [r(b, c, scale=0.1, base=1.0), r(b, c, scale=0.1)]
+    return ops, r(b, t, cin)
+
+
+def conv_block_bound(b, t, cin, co, bf16_x, rate):
+    """(bound_ms, bound_by) of one ConvBlock: its products' flops over `rate`
+    (the skip conv of a bf16 x takes two TF32 products, not three, so it
+    counts 2/3 of its flops at the 3xTF32 rate) against its bytes (x, out,
+    weights and per-row FiLM read or written once) over HBM."""
+    c2 = co // 2
+    skip, rest = 2 * b * t * 3 * cin * co, 2 * b * t * (3 * cin * c2 + 3 * c2 * co + co * co)
+    if bf16_x and rate == H100_3XTF32_FLOPS:
+        skip = skip * 2 / 3
+    elem = 2 if bf16_x else 4
+    weights = 3 * cin * co + co + 3 * cin * c2 + c2 + 3 * c2 * co + co + co * co + co
+    bytes_ = elem * b * t * (cin + co) + 4 * (weights + b * (c2 + co + co) * 2)
+    return roofline(skip + rest, bytes_, rate)
+
+
 def train_kernel_phase(report):
     """fused_attention and fused_conv_block at every training-path shape."""
     import torch.nn.functional as F
 
-    from dhg_torch.kernels import fused_attention as fa
+    from dhg_torch.kernels import build, fused_attention as fa
     from dhg_torch.kernels import fused_conv_block as fc
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -603,30 +646,54 @@ def train_kernel_phase(report):
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
         )
         rows.append(dict(row, per_step=per_step, shape=[b, h, tq, tk, d], masked=masked))
+    lib = build.load()
+    layouts = {}
     for label, t, cin, co in TRAIN_CONV:
-        c2 = co // 2
-
-        def r(*shape, scale=1.0, base=0.0):
-            return base + scale * torch.randn(*shape, generator=gen, device="cuda")
-
-        ops = [r(3, cin, co, scale=(3 * cin) ** -0.5), r(co, scale=0.1),
-               r(3, cin, c2, scale=(3 * cin) ** -0.5), r(c2, scale=0.1),
-               r(3, c2, co, scale=(3 * c2) ** -0.5), r(co, scale=0.1),
-               r(co, co, scale=co ** -0.5), r(co, scale=0.1)]
-        for c in (c2, co, co):  # FiLM gamma, beta per row
-            ops += [r(b, c, scale=0.1, base=1.0), r(b, c, scale=0.1)]
-        x32 = r(b, t, cin)
-        flops = 2 * b * t * (3 * cin * co + 3 * cin * c2 + 3 * c2 * co + co * co)
-        w_bytes = 4 * (sum(o.numel() for o in ops))
-        for dt, elem, tol, med in ((bf, 2, 0.05, 5e-3), (torch.float32, 4, 1e-4, 1e-4)):
+        ops, x32 = conv_block_operands(b, t, cin, co, gen)
+        tile, threads, slots, smem = fc.conv_block_layout(cin, co)
+        for dt, tol, med in ((bf, 0.05, 5e-3), (torch.float32, 1e-4, 1e-4)):
             x = x32.to(dt)
+            resident = lib.dhg_conv_block_ctas_per_sm(cin, co, int(dt == bf))
+            ctas = -(-t // tile) * b
+            log(f"  conv block {label} {str(dt)[6:]}: {ctas} CTAs of {tile} rows and {threads} "
+                f"threads, {slots} ring slots, {smem} bytes; {resident} an SM resident")
+            if resident < 1:
+                fail(f"conv block {label}: no CTA fits on an SM")
             row = timed_case(
                 "fused_conv_block", f"conv block {label} {str(dt)[6:]} B={b}",
                 lambda: fc.fused_conv_block(x, *ops), lambda: fc.conv_block_plain(x, *ops),
-                roofline(flops, w_bytes + elem * b * t * (cin + co), H100_F32_FLOPS),
+                conv_block_bound(b, t, cin, co, dt == bf, H100_3XTF32_FLOPS),
                 tol=tol, median_bar=med,
             )
-            rows.append(dict(row, per_step=1 if dt == bf else 0, shape=[b, t, cin, co]))
+            layouts[f"{label} {str(dt)[6:]}"] = dict(ctas=ctas, tile=tile, threads=threads,
+                                                     slots=slots, smem_bytes=smem,
+                                                     ctas_per_sm=resident)
+            rows.append(dict(row, per_step=1 if dt == bf else 0, shape=[b, t, cin, co],
+                             bound_cuda_core_ms=conv_block_bound(b, t, cin, co, dt == bf,
+                                                                 H100_F32_FLOPS)[0]))
+    report["conv_block_layouts"] = layouts
+    for rb, t, cin, co in CONV_RAGGED:
+        ops, x32 = conv_block_operands(rb, t, cin, co, gen)
+        for dt, tol, med in ((bf, 0.05, 5e-3), (torch.float32, 1e-4, 1e-4)):
+            x = x32.to(dt)
+            got = fc.fused_conv_block(x, *ops)
+            torch.cuda.synchronize()
+            err = compare(f"conv block ragged T={t} [{cin} -> {co}] {str(dt)[6:]} B={rb}", got,
+                          fc.conv_block_plain(x, *ops), tol, med)
+            rows.append(dict(kernel="fused_conv_block", case=f"ragged T={t} {str(dt)[6:]}",
+                             max_abs_err=err, per_step=0, shape=[rb, t, cin, co]))
+    # f32-accurate products: against the plain version in float64 at dec3's
+    # widths (a single TF32 pass misses this by an order of magnitude).
+    ops, x = conv_block_operands(8, 120, 384, 256, gen)
+    ref = fc.conv_block_plain(x.double(), *[o.double() for o in ops])
+    scale = float(ref.abs().max())
+    rel = float((fc.fused_conv_block(x, *ops).double() - ref).abs().max()) / scale
+    plain_rel = float((fc.conv_block_plain(x, *ops).double() - ref).abs().max()) / scale
+    log(f"  conv block dec3 f32 against float64: kernel {rel:.3g}, plain f32 {plain_rel:.3g} "
+        f"of the output's scale {scale:.3g} (bar 1e-5)")
+    if not rel <= 1e-5:
+        fail("fused_conv_block: f32 output not within 1e-5 of a float64 reference")
+    report["conv_block_f64_rel_err"] = dict(kernel=rel, plain_f32=plain_rel)
     report["train_kernel_cases"] = rows
     return rows
 

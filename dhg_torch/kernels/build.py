@@ -121,8 +121,14 @@ def load() -> ctypes.CDLL:
     lib.dhg_bottleneck_max_clusters.restype = i
     lib.dhg_fused_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.dhg_fused_attention.restype = i
-    lib.dhg_fused_conv_block.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.dhg_fused_conv_block.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.dhg_fused_conv_block.restype = i
+    lib.dhg_conv_block_tile.argtypes = []
+    lib.dhg_conv_block_threads.argtypes = [i]
+    lib.dhg_conv_block_slots.argtypes = [i, i]
+    lib.dhg_conv_block_smem_bytes.argtypes = [i, i]
+    lib.dhg_conv_block_smem_bytes.restype = ctypes.c_longlong
+    lib.dhg_conv_block_ctas_per_sm.argtypes = [i, i, i]
     for name in ("dhg_unet_t4_cluster", "dhg_unet_t4_rows", "dhg_unet_t4_keys",
                  "dhg_unet_t4_smem_bytes"):
         getattr(lib, name).argtypes = [i] * 6

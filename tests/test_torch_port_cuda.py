@@ -340,9 +340,13 @@ def _conv_block_inputs(b, t_len, cin, co, dtype, device, film_batch=None, seed=0
     return r(b, t_len, cin).to(dtype), ops
 
 
-# (B, T, Cin, Co): small and ragged cases, then the six training-path blocks.
+# (B, T, Cin, Co): small and ragged cases, then the six training-path blocks,
+# then ragged T around the kernel's 62-row tile (1, 2, 17, 61, 62, 63) at
+# training widths, and a Co past one 256-column pass.
 CONV_SHAPES = [(2, 5, 8, 16), (3, 70, 24, 48), (96, 480, 128, 128), (96, 240, 128, 192),
-               (96, 120, 192, 256), (96, 120, 384, 256), (96, 240, 256, 192), (96, 480, 192, 128)]
+               (96, 120, 192, 256), (96, 120, 384, 256), (96, 240, 256, 192), (96, 480, 192, 128),
+               (3, 1, 384, 256), (3, 2, 128, 192), (3, 17, 192, 256), (3, 61, 256, 192),
+               (3, 62, 384, 256), (3, 63, 192, 128), (2, 40, 36, 264)]
 
 
 @pytest.mark.cuda
@@ -359,8 +363,52 @@ def test_cuda_conv_block_matches_plain(cuda, shape, dtype):
     ref = fc.conv_block_plain(x, *ops)
     if dtype == BF:
         _close(ours, ref)
-    else:  # f32 FMAs, sums in another order
+    else:  # 3xTF32 tensor-core products, sums in another order
         np.testing.assert_allclose(ours.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_block_f32_accuracy(cuda):
+    """At dec3's widths in f32 the kernel stays within 1e-5 of the output's
+    scale of conv_block_plain in float64; the plain version with TF32
+    products (one pass, 10-bit mantissas) does not, so the bar has teeth."""
+    from dhg_torch.kernels import fused_conv_block as fc
+
+    x, ops = _conv_block_inputs(8, 120, 384, 256, torch.float32, cuda, seed=3)
+    ref = fc.conv_block_plain(x.double(), *[o.double() for o in ops])
+    scale = float(ref.abs().max())
+
+    def rel(out):
+        return float((out.double() - ref).abs().max()) / scale
+
+    assert rel(fc.fused_conv_block(x, *ops)) <= 1e-5
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = rel(fc.conv_block_plain(x, *ops))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert tf32 > 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_conv_block_layout(cuda):
+    """conv_block_layout agrees with the kernel's tile, threads, ring slots
+    and shared memory at every case, and the card holds a CTA of each."""
+    from dhg_torch.kernels import fused_conv_block as fc
+    from dhg_torch.kernels.build import load
+
+    lib = load()
+    for _, _, cin, co in CONV_SHAPES:
+        assert (lib.dhg_conv_block_tile(), lib.dhg_conv_block_threads(co),
+                lib.dhg_conv_block_slots(cin, co), lib.dhg_conv_block_smem_bytes(cin, co)) == \
+            fc.conv_block_layout(cin, co)
+        for is_bf16 in (0, 1):
+            assert lib.dhg_conv_block_ctas_per_sm(cin, co, is_bf16) >= 1
+    x, ops = _conv_block_inputs(1, 4, 1024, 512, torch.float32, cuda)
+    n = fc.launches["fused_conv_block"]
+    with pytest.raises(ValueError, match="fused_conv_block: widths Cin 1024, Co 512"):
+        fc.fused_conv_block(x, *ops)
+    assert fc.launches["fused_conv_block"] == n
 
 
 @pytest.mark.cuda

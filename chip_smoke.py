@@ -71,6 +71,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  data/style_trunk_synth.npz, a 23-character prompt to a PNG
                  (decoded again through dhg_torch.data.images), then
                  --wrap=12 to an SVG; strokes finite, no kernel launched
+  7c. serve    — dhg_torch.serve on that run dir (f32, as dhg's serve; no
+                 kernel launched): GenerationService.from_experiment with a
+                 bank of two style PNGs, warm-up of dhg's default grid
+                 (buckets 200 and 400, modes new and standard, max_batch 16:
+                 20 captured CUDA graphs; seconds and peak memory logged); a
+                 replay at batch 1 and 16 bit-identical to the eager
+                 generate on the same draws, both timed and profiled (idle
+                 share); five solo requests (client latency beside the
+                 service's own ms); tools/bench_serve.py's run_level with
+                 the 23-character prompt at 1 client x 100, 16 x 16 and 64 x 8
+                 requests, so that every level's p99 rests on 100 or more
+                 latencies (lines/s, p50/p99, the batches' sizes and, from
+                 the service's batch_log, when each batch's requests arrived
+                 against when the batcher took the batch; the capture count
+                 must not move); a page
+                 request; the host time of the noise streams at batch 16 and
+                 256; then `python -m dhg_torch.serve` as a subprocess: a
+                 request, SIGTERM, exit 0 after "stopped (drained)"
   8. train rate — train_steps_per_sec_batch96 with both kernels and with
                  both flags off, in turns (off, on, on, off): CUDA events
                  over 10 steps after one warm-up step
@@ -83,6 +101,7 @@ Stdout ends with the kernels line, the nvidia-smi line and, last,
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -118,6 +137,10 @@ REPLACES = {
     "fused_unet_t4": "dhg/kernels/fused_bottleneck.py:407",
 }
 INFER_PROMPT = "handwriting on the card"  # 23 characters, as the sampler phases
+SERVE_BUCKET = 400  # the serving bucket of a 23-character prompt (392 steps)
+# bench_serve levels (clients, requests each): 100 or more latencies a level,
+# so that each p99 is a percentile and not the largest of a few.
+SERVE_LEVELS = ((1, 100), (16, 16), (64, 8))
 LONG_PROMPT = "the quick brown fox jumps over the lazy dog again"  # 49 characters + EOS
 LONG_T8 = 101  # infer_seq_len(50) // 8
 LONG_SEQ = 8 * LONG_T8  # 808 steps: enc3 at T = 404, enc5 at 202
@@ -807,19 +830,13 @@ def infer_phase(run, tmp, report):
     """The infer CLI on the train phase's run dir (f32, as dhg's infer): a
     style PNG written with the port's own writer, one 23-character line to
     a PNG, then the same prompt wrapped at 12 characters to an SVG."""
-    from dhg_torch.data.images import read_png, write_png
+    from dhg_torch.data.images import read_png
     from dhg_torch.inference import main as infer_main
     from dhg_torch.kernels import fused_attention as fa
     from dhg_torch.kernels import fused_bottleneck as fk
     from dhg_torch.kernels import fused_conv_block as fc
 
-    rng = np.random.RandomState(9)
-    page = np.full((80, 320), 245, np.uint8)
-    for _ in range(40):  # dark scribbles on a white page
-        r, c = rng.randint(10, 70), rng.randint(10, 290)
-        page[r - 2:r + 3, c:c + rng.randint(4, 20)] = rng.randint(0, 80)
-    style = os.path.join(tmp, "style.png")
-    write_png(style, page)
+    style = scribble_png(os.path.join(tmp, "style.png"), 9)
     prompt = INFER_PROMPT
     weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                            "style_trunk_synth.npz")
@@ -850,6 +867,245 @@ def infer_phase(run, tmp, report):
             fail(f"infer ({fmt}): bad output or a bf16 kernel launched ({kernel_launches})")
         outs[fmt] = dict(shape=list(strokes.shape), wall_s=wall)
     report["infer"] = outs
+
+
+def scribble_png(path, seed):
+    """A synthetic style image (dark scribbles on a white page) written with
+    the port's own PNG writer."""
+    from dhg_torch.data.images import write_png
+
+    rng = np.random.RandomState(seed)
+    page = np.full((80, 320), 245, np.uint8)
+    for _ in range(40):
+        r, c = rng.randint(10, 70), rng.randint(10, 290)
+        page[r - 2:r + 3, c:c + rng.randint(4, 20)] = rng.randint(0, 80)
+    write_png(path, page)
+    return path
+
+
+def batch_timeline(log_rows):
+    """What a level's batches were made of, from GenerationService.batch_log:
+    their sizes; the share of requests already queued when the batcher took
+    their batch's first request, the share that came in the batching window
+    after it, and the share that arrived while the batch before sampled; the
+    mean sampling time; the mean time the batcher waited between one
+    batch's end and taking the next; and the service's own latency
+    percentiles, each request's submit to its batch's end."""
+    from dhg_torch.tools.bench_serve import percentiles_ms
+
+    n = sum(len(r["submits"]) for r in log_rows) or 1
+    queued = sum(t <= r["taken"] for r in log_rows for t in r["submits"])
+    window = sum(r["taken"] < t <= r["start"] for r in log_rows for t in r["submits"])
+    during_prev = sum(p["start"] < t <= p["end"]
+                      for p, r in zip(log_rows, log_rows[1:]) for t in r["submits"])
+    idle = [r["taken"] - p["end"] for p, r in zip(log_rows, log_rows[1:])]
+    return {
+        "batches": len(log_rows),
+        "sizes": [len(r["submits"]) for r in log_rows],
+        "mean_batch": n / max(len(log_rows), 1),
+        "queued_share": queued / n,
+        "window_share": window / n,
+        "during_prev_share": during_prev / n,
+        "sample_ms_mean": statistics.mean(r["end"] - r["start"] for r in log_rows) * 1e3,
+        "idle_ms_mean": statistics.mean(idle) * 1e3 if idle else 0.0,
+        "service": percentiles_ms([r["end"] - t for r in log_rows for t in r["submits"]]),
+    }
+
+
+def serve_phase(run, tmp, report):
+    """The serving runtime on the train run's model_final (f32, as dhg's
+    serve): warm-up of dhg's default grid (buckets 200 and 400, modes new and
+    standard, max_batch 16: 20 captured graphs), one replay against the eager
+    generate bit for bit at batch 1 and 16, replay and eager calls timed and
+    profiled, bench_serve's run_level at 1 x 100, 16 x 16 and 64 x 8 (clients
+    x requests; captures must not move; each level's batches read from the
+    service's batch_log), a page request, then the CLI as a subprocess
+    drained by SIGTERM. Kernel counts zeroed before and read after: this
+    path runs no kernel (f32)."""
+    import signal
+    import threading
+
+    from dhg_torch.core.sampling import per_sample_noise_streams
+    from dhg_torch.data.tokenizer import Tokenizer
+    from dhg_torch.inference import generate, wrap_text
+    from dhg_torch.kernels import fused_attention as fa
+    from dhg_torch.kernels import fused_bottleneck as fk
+    from dhg_torch.kernels import fused_conv_block as fc
+    from dhg_torch.serve import GenerationService, serve
+    from dhg_torch.tools.bench_serve import _post, run_level
+    from dhg_torch.tools.profile_sampler import profile_call
+
+    out = {}
+    t_phase = time.perf_counter()
+    draw_ms = {}
+    for b in (16, 256):  # the rows' noise streams on the host, bucket 400, 60 steps
+        t0 = time.perf_counter()
+        per_sample_noise_streams(range(b), N_STEPS, SERVE_BUCKET, "cpu")
+        draw_ms[b] = (time.perf_counter() - t0) * 1e3
+    log(f"  noise streams on the host (60 steps, T {SERVE_BUCKET}): B=16 {draw_ms[16]:.2f} ms, "
+        f"B=256 {draw_ms[256]:.2f} ms")
+    out["noise_draw_host_ms"] = draw_ms
+
+    sources = ",".join(scribble_png(os.path.join(tmp, f"serve_style{i}.png"), 20 + i)
+                       for i in range(2))
+    reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = GenerationService.from_experiment(str(run), source=sources, device="cuda")
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    httpd = serve(svc, port=0)
+    warm_s = time.perf_counter() - t0
+    captures = svc.stats_snapshot()["captures"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  from_experiment (model_final, 2 style PNGs) {load_s:.1f} s; "
+        f"warm-up (buckets 200 and 400, modes new and standard, max_batch 16): {captures} "
+        f"graphs captured in {warm_s:.1f} s; peak device memory {peak_gb:.3f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved); bank of "
+        f"{svc.n_styles} styles")
+    if captures != 20 or svc.n_styles != 2:
+        fail(f"serve: {captures} graphs after warm-up (want 20), {svc.n_styles} styles")
+    out.update(load_s=load_s, warmup_s=warm_s, graphs=captures, peak_mem_gib=peak_gb)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        tokens = Tokenizer().encode(INFER_PROMPT)
+        calls = {}
+        for b in (1, 16):
+            seeds = list(range(1000, 1000 + b))
+            text = np.zeros((b, TEXT_LEN), np.int64)
+            text[:, :len(tokens)] = tokens
+            style = svc.styles[:1].expand(b, 14, 1280)
+
+            def replay():
+                return svc._run_bucket([tokens] * b, seeds, SERVE_BUCKET, "new", None)
+
+            def eager():
+                return generate(svc.model, text, style, seq_len=SERVE_BUCKET,
+                                sample_seeds=seeds, device="cuda").cpu().numpy()
+
+            got, want = replay(), eager()
+            gap = float(np.abs(got - want).max())
+            log(f"  B={b}: replay against eager generate on the same draws: "
+                f"{'bit-identical' if np.array_equal(got, want) else f'max |diff| {gap:.3g}'}")
+            if not np.array_equal(got, want) or not np.isfinite(got).all():
+                fail(f"serve: replay at B={b} is not the eager generate's result")
+            row = {}
+            for label, fn in (("replay", replay), ("eager", eager)):
+                ms = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                prof = profile_call(fn)
+                prof_s = time.perf_counter() - t0
+                row[label] = dict(ms=ms, **{k: prof[k] for k in ("wall_ms", "device_ms",
+                                                                 "idle_share",
+                                                                 "n_kernel_launches")})
+                log(f"  B={b} {label}: {', '.join(f'{m:.1f}' for m in ms)} ms a call (host "
+                    f"clock, draws and copies included); profiled: wall {prof['wall_ms']:.1f} "
+                    f"ms, device {prof['device_ms']:.2f} ms, idle {prof['idle_share']:.3f}, "
+                    f"{prof['n_kernel_launches']} kernels (the profiler took {prof_s:.1f} s)")
+            calls[b] = row
+        out["calls"] = calls
+        if svc.stats_snapshot()["captures"] != captures:
+            fail("serve: the checks captured a graph")
+
+        gaps = []  # a solo request's client latency beside the service's own "ms"
+        for seed in range(1, 6):
+            t0 = time.perf_counter()
+            _, body = _post(url + "/generate", {"prompt": INFER_PROMPT, "seed": seed})
+            gaps.append(((time.perf_counter() - t0) * 1e3, body["ms"]))
+        log("  solo requests, client ms / service ms (submit to result): "
+            + ", ".join(f"{c:.1f} / {m:.1f}" for c, m in gaps))
+        out["solo_client_vs_service_ms"] = gaps
+        levels = []
+        for i, (clients, requests) in enumerate(SERVE_LEVELS):
+            t_level = time.perf_counter()
+            res = run_level(url, clients, requests, INFER_PROMPT, seed0=10_000 * (i + 1))
+            res["captures"] = svc.stats_snapshot()["captures"]
+            res.update(batch_timeline([r for r in svc.batch_log if r["taken"] >= t_level]))
+            levels.append(res)
+            log(f"  {clients} clients x {requests}: {res['lines_per_s']} lines/s, p50 "
+                f"{res['p50_ms']} ms, p99 {res['p99_ms']} ms, errors {res['errors']}, "
+                f"captures {res['captures']}; {res['batches']} batches, mean size "
+                f"{res['mean_batch']:.2f}, sizes in order (first 24) {res['sizes'][:24]}, "
+                f"by size {dict(sorted(collections.Counter(res['sizes']).items()))}")
+            log(f"    of the level's requests: {res['queued_share']:.3f} were queued when the "
+                f"batcher took their batch's first request, {res['window_share']:.3f} came in "
+                f"its {svc.batch_window * 1e3:.0f} ms window; "
+                f"{res['during_prev_share']:.3f} arrived while the batch before sampled; "
+                f"sampling {res['sample_ms_mean']:.1f} ms a batch on average; batcher idle "
+                f"between batches {res['idle_ms_mean']:.2f} ms on average; in the service "
+                f"(submit to batch end) p50 {res['service']['p50_ms']} ms, p99 "
+                f"{res['service']['p99_ms']} ms")
+            if res["errors"] or res["ok"] != clients * requests or res["captures"] != captures:
+                fail(f"serve: level {clients}: {res}")
+            if sum(res["sizes"]) != clients * requests:
+                fail(f"serve: level {clients}: the batch log holds {sum(res['sizes'])} requests")
+        out["levels"] = levels
+
+        prompt = INFER_PROMPT + " served as a page"
+        status, body = _post(url + "/generate", {"prompt": prompt, "seed": 3, "wrap": 20})
+        page = np.asarray(body.get("strokes", []))
+        log(f"  page request (wrap 20): status {status}, {body.get('lines')} lines, strokes "
+            f"{page.shape}, {body.get('ms')} ms")
+        if (status != 200 or body["lines"] != len(wrap_text(prompt, 20)) or page.ndim != 2
+                or not np.isfinite(page).all()):
+            fail("serve: page request failed")
+        if svc.stats_snapshot()["captures"] != captures:
+            fail("serve: live traffic captured a graph")
+        out["stats"] = svc.stats_snapshot()
+    finally:
+        httpd.shutdown()
+        svc.shutdown()
+        httpd.server_close()
+    kernel_launches = sum(fk.launches.values()) + sum(fa.launches.values()) + sum(
+        fc.launches.values())
+    if kernel_launches:
+        fail(f"serve: {kernel_launches} kernel launches on the f32 path")
+    del svc
+    torch.cuda.empty_cache()
+
+    log_path = os.path.join(tmp, "serve_cli.log")
+    cmd = [sys.executable, "-u", "-m", "dhg_torch.serve", f"--experiment_path={run}",
+           "--warmup_buckets=400", "--warm_modes=new", "--max_batch=4", "--port=0"]
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        port = None
+        while time.perf_counter() - t0 < 180 and proc.poll() is None:
+            text = open(log_path).read()
+            if "dhg_torch serving on 127.0.0.1:" in text:
+                port = int(text.split("dhg_torch serving on 127.0.0.1:")[1].split()[0])
+                break
+            time.sleep(0.2)
+        if port is None:
+            fail(f"serve CLI never announced its port:\n{open(log_path).read()[-2000:]}")
+        up_s = time.perf_counter() - t0
+        status, body = _post(f"http://127.0.0.1:{port}/generate", {"prompt": INFER_PROMPT})
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        text = open(log_path).read()
+        drained = "dhg_torch server stopped (drained)" in text
+        log(f"  CLI (--warmup_buckets=400 --warm_modes=new --max_batch=4): serving after "
+            f"{up_s:.1f} s, request status {status}, SIGTERM -> exit {rc}, drained {drained}")
+        if status != 200 or rc != 0 or not drained:
+            fail(f"serve CLI: status {status}, exit {rc}:\n{text[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["cli_up_s"] = up_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  serve phase {out['phase_s']:.1f} s (the CLI {time.perf_counter() - t0:.1f} s)")
+    report["serve"] = out
 
 
 def train_rate_phase(report):
@@ -968,6 +1224,8 @@ def main() -> None:
         train_counts, run = train_phase(report, tmp)
         log("== infer: the CLI on the train run's model_final (f32)")
         infer_phase(run, tmp, report)
+        log("== serve: dhg_torch.serve on the train run's model_final (f32, CUDA graphs)")
+        serve_phase(run, tmp, report)
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
 

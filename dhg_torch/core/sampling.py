@@ -49,6 +49,26 @@ def infer_seq_len(num_tokens: int) -> int:
     return t - (t % 8) + 8
 
 
+def per_sample_noise_streams(seeds, n_steps: int, seq_len: int,
+                             device: str | torch.device = "cuda"
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Independent noise streams, one per batch row: (x_init [B, T, 2],
+    noises [n_steps, B, T, 2]), float32 on `device`.
+
+    Row r comes only from seeds[r] (with seq_len and n_steps): its own CPU
+    torch.Generator draws x_T, then the n steps' noise in one draw. So a
+    request's noise is the same whether it is sampled alone or co-batched,
+    and the same on the CPU as on the card (a Philox stream on the card
+    would give a seed other strokes there than in the CPU tests). The draws
+    run on the host; the result is then copied to the device."""
+    xs, zs = [], []
+    for seed in seeds:
+        gen = torch.Generator().manual_seed(int(seed))
+        xs.append(torch.randn((seq_len, 2), generator=gen))
+        zs.append(torch.randn((n_steps, seq_len, 2), generator=gen))
+    return torch.stack(xs).to(device), torch.stack(zs, dim=1).to(device)
+
+
 def diffusion_sample(
     denoise_fn: Callable,
     batch_size: int,

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from dhg_torch import resolve_device
-from dhg_torch.core.sampling import diffusion_sample, infer_seq_len
+from dhg_torch.core.sampling import diffusion_sample, infer_seq_len, per_sample_noise_streams
 from dhg_torch.core.schedule import N_STEPS, get_alpha_set, get_beta_set
 from dhg_torch.data.tokenizer import Tokenizer
 from dhg_torch.ops.basic import create_padding_mask
@@ -64,12 +64,17 @@ def wrap_text(text: str, width: int) -> list[str]:
 
 
 @lru_cache(maxsize=None)
-def _device_beta_set(n_steps: int, schedule: str, device: str) -> torch.Tensor:
-    """The coarsened beta table for (n_steps, schedule), built once per device.
-    Callers must not modify it."""
+def beta_table(n_steps: int, schedule: str, device: str) -> torch.Tensor:
+    """The beta table for (n_steps, schedule) on `device`, built once: the
+    canonical table at N_STEPS (whatever the schedule), else its strided or
+    halved coarsening. Callers must not modify it. A CUDA graph's capture
+    takes it from here: a host-to-device copy may not run while a stream
+    captures."""
     from dhg_torch.core.schedule import halved_beta_set, strided_beta_set
 
-    if schedule == "halved":
+    if n_steps == N_STEPS:
+        table = get_beta_set()
+    elif schedule == "halved":
         table = halved_beta_set(n_steps)
     elif schedule == "strided":
         table = strided_beta_set(n_steps)
@@ -100,6 +105,7 @@ def generate(
     x_init: torch.Tensor | None = None,
     noises: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
+    sample_seeds: list[int] | None = None,
 ) -> torch.Tensor:
     """Sample stroke sequences [B, seq_len, 3] (float32) for tokenized prompts.
 
@@ -108,8 +114,11 @@ def generate(
     guidance_scale: eps = eps_null + g (eps_text - eps_null); None or 1 skips
     the null branch. n_steps / schedule: a "strided" or "halved" sub-schedule
     of the canonical 60 levels. temperature scales x_T and all injected
-    noise. Randomness comes from `generator` (on `device`) or from pre-drawn
-    `x_init` [B,T,2] and `noises` [n,B,T,2] (see diffusion_sample).
+    noise. Randomness comes from `generator` (on `device`), from pre-drawn
+    `x_init` [B,T,2] and `noises` [n,B,T,2] (see diffusion_sample), or from
+    `sample_seeds`, one int per row: each row draws its own stream
+    (per_sample_noise_streams), so its strokes do not depend on the rows
+    it is batched with. sample_seeds excludes the other two.
     """
     dev = resolve_device(device)
     _check_model_device(model, dev)
@@ -118,10 +127,7 @@ def generate(
     temperature = 1.0 if temperature is None else float(temperature)
     if temperature <= 0.0:
         raise ValueError(f"temperature must be > 0, got {temperature}")
-    if n_steps is not None and n_steps != N_STEPS:
-        beta_set = _device_beta_set(int(n_steps), schedule, str(dev))
-    else:
-        beta_set = get_beta_set().to(dev)
+    beta_set = beta_table(N_STEPS if n_steps is None else int(n_steps), schedule, str(dev))
     if not isinstance(text, torch.Tensor):
         text = np.asarray(text)
     text = torch.as_tensor(text, dtype=torch.long, device=dev)
@@ -130,6 +136,12 @@ def generate(
         seq_len = infer_seq_len(int((text != 0).sum(dim=1).max()))
     if seq_len % 8 != 0:
         raise ValueError(f"seq_len must be a multiple of 8, got {seq_len}")
+    if sample_seeds is not None:
+        if generator is not None or x_init is not None or noises is not None:
+            raise ValueError("sample_seeds excludes generator, x_init and noises")
+        if len(sample_seeds) != text.shape[0]:
+            raise ValueError(f"{len(sample_seeds)} sample_seeds for a batch of {text.shape[0]}")
+        x_init, noises = per_sample_noise_streams(sample_seeds, beta_set.shape[0], seq_len, dev)
 
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -6,7 +6,9 @@ bar the test holds it to.
 
 Sections: encoder_layer (the sampler's enc3/enc5 kernel), attention,
 conv_block, optimizer, trajectory (the training path), t4, front_end (the
-T4 region and the infer front end); all by default.
+T4 region and the infer front end), serve (the serving slice's sampler
+against dhg's per-request keys, and one served group against dhg's
+service); all by default.
 Not a test module (pytest does not collect it); it reuses the helpers of
 the tests/test_torch_port_*.py files it names.
 """
@@ -193,9 +195,23 @@ def front_end():
           f"(bar 1e-4; largest |value| {np.abs(ref).max():.3g})")
 
 
+def serve():
+    import test_torch_port_serve as tsv
+
+    params = tsv.random_params(seed=0, c1=tsv.C1, num_layers=tsv.N_LAYERS)
+    for variant in tsv.SLICE_VARIANTS:
+        ours, ref = tsv.slice_against_dhg(params, variant)
+        print(f"serve slice ({variant}, B = 3) vs dhg's generate(sample_keys): stroke MSE "
+              f"{float(np.mean((ours - ref) ** 2)):.2g} (bar 1e-3)")
+    ours, ref, _ = tsv.served_group_against_dhg(params)
+    diff = np.concatenate([o - r for o, r in zip(ours, ref)])
+    print(f"serve group (3 requests padded to 4) vs dhg's GenerationService: stroke MSE "
+          f"{float(np.mean(diff ** 2)):.2g} (bar 1e-3)")
+
+
 if __name__ == "__main__":
     sections = dict(encoder_layer=encoder_layer, attention=attention, conv_block=conv_block,
                     optimizer=optimizer,
-                    trajectory=trajectory, t4=t4, front_end=front_end)
+                    trajectory=trajectory, t4=t4, front_end=front_end, serve=serve)
     for name in sys.argv[1:] or sections:
         sections[name]()

@@ -89,6 +89,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  request; the host time of the noise streams at batch 16 and
                  256; then `python -m dhg_torch.serve` as a subprocess: a
                  request, SIGTERM, exit 0 after "stopped (drained)"
+  7d. iam      — the IAM data path: dhg_torch.tools.gen_iam_scale writes a
+                 tree of 192 train and 48 validation forms (seed 7); both
+                 caches built on the card (style vectors from the StyleExtractor
+                 with data/style_trunk_synth.npz, as phase 7b) through load_or_build_cache (the
+                 native stroke scanner must parse every file; lines kept and
+                 dropped by filter, seconds by stage, lines/s, peak memory),
+                 then loaded again without a rebuild; 20 steps of
+                 dhg_torch.train.main with dataset iam (configs/best.yml's
+                 model and batch, both train-path kernels: 9 and 6 launches
+                 a forward, the steps' and the val_freq passes' at steps 10
+                 and 20), checkpoints 10 and 20 averaged
+                 (tools/average_checkpoints) and loaded; the eval CLI on the
+                 soup (one finite Val Loss line); the metrics CLI (64
+                 samples, batch 32, the f32 60-step sampler at seq_len 480:
+                 finite KS distances and frechet_style_distance)
   8. train rate — train_steps_per_sec_batch96 with both kernels and with
                  both flags off, in turns (off, on, on, off): CUDA events
                  over 10 steps after one warm-up step
@@ -145,6 +160,7 @@ LONG_PROMPT = "the quick brown fox jumps over the lazy dog again"  # 49 characte
 LONG_T8 = 101  # infer_seq_len(50) // 8
 LONG_SEQ = 8 * LONG_T8  # 808 steps: enc3 at T = 404, enc5 at 202
 TRAIN_B, TRAIN_STEPS = 96, 20  # T = 480 (tools/profile_train.py::best_config)
+IAM_FORMS, IAM_SEED = (192, 48), 7  # generated train / validation forms
 # The training forward's attention calls at T = 480, L = 50: (label, H, Tq,
 # Tk, D, masked, launches a step).
 TRAIN_ATTENTION = [("text-style cross", 8, TEXT_LEN, 70, 48, False, 1),
@@ -1108,6 +1124,168 @@ def serve_phase(run, tmp, report):
     report["serve"] = out
 
 
+def iam_phase(report, tmp):
+    """The IAM data path: a generated tree, both caches built on the card
+    (native scanner required) and loaded again without a rebuild, 20
+    training steps on them with both train-path kernels, the tail
+    checkpoints averaged, then the eval and metrics CLIs."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from dhg_torch.config import DLConfig
+    from dhg_torch.data import strokes as stroke_parse
+    from dhg_torch.data.iam import load_or_build_cache
+    from dhg_torch.eval import main as eval_main
+    from dhg_torch.kernels import fused_attention as fa
+    from dhg_torch.kernels import fused_bottleneck as fk
+    from dhg_torch.kernels import fused_conv_block as fc
+    from dhg_torch.metrics import main as metrics_main
+    from dhg_torch.models.denoiser import DiffusionModel
+    from dhg_torch.native import get_lib
+    from dhg_torch.tools import gen_iam_scale
+    from dhg_torch.tools.average_checkpoints import main as average_main
+    from dhg_torch.tools.profile_train import best_config
+    from dhg_torch.train import iam_cache_kwargs
+    from dhg_torch.train import main as train_main
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    root = Path(tmp) / "iam_tree"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tree = gen_iam_scale.main(root=str(root), train_forms=IAM_FORMS[0],
+                                  val_forms=IAM_FORMS[1], seed=IAM_SEED)
+    out["tree"] = dict(tree, gen_wall_s=time.perf_counter() - t0)
+    log(f"  tree: {tree['train_forms']} + {tree['val_forms']} forms, {tree['lines']} lines, "
+        f"{tree['disk_mb']} MB, {out['tree']['gen_wall_s']:.1f} s")
+
+    cfg = best_config(Path(tmp) / "iam_runs", TRAIN_STEPS, TRAIN_B)
+    cfg["experiment"].update(data_dir=str(root), splits_file=str(root / "splits.json"))
+    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "style_trunk_synth.npz")
+    cfg["dataset_args"].update(img_height=96, img_width=1400, style_weights=weights)
+    cfg["training_args"].update(dataset="iam", cache_dir=str(Path(tmp) / "iam_cache"),
+                                max_files=None, keep_checkpoints=None, val_freq=10)
+    cfg = DLConfig(cfg)
+    if get_lib() is None:
+        fail("iam: the native stroke scanner did not build (g++)")
+    caches = {}
+    for kind in ("train", "validation"):
+        kwargs = iam_cache_kwargs(cfg, kind, "cuda")
+        stroke_parse.parsed.clear()
+        torch.cuda.reset_peak_memory_stats()
+        built: dict = {}
+        t0 = time.perf_counter()
+        cache = load_or_build_cache(**kwargs, stats=built)
+        wall = time.perf_counter() - t0
+        parsed = dict(stroke_parse.parsed)
+        if "built" not in built:
+            fail(f"iam {kind}: the cache was not built afresh ({built})")
+        if parsed.get("fallback", 0) or not parsed.get("native"):
+            fail(f"iam {kind}: stroke files not parsed by the native scanner ({parsed})")
+        n = len(cache)
+        lines = n + sum(built.get(k, 0) for k in ("dropped_text", "dropped_strokes",
+                                                  "dropped_image", "dropped_missing"))
+        ok = (cache.strokes.shape == (n, 480, 3) and cache.style.shape == (n, 14, 1280)
+              and np.isfinite(cache.strokes).all() and np.isfinite(cache.style).all())
+        if not ok:
+            fail(f"iam {kind}: bad cache arrays")
+        built.update(parsed=parsed, wall_s=wall, lines=lines, lines_per_s=lines / wall,
+                     peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  {kind}: {n} of {lines} lines kept (dropped: text {built.get('dropped_text', 0)}, "
+            f"strokes {built.get('dropped_strokes', 0)}, image {built.get('dropped_image', 0)}); "
+            f"native parses {parsed.get('native', 0)}; forms {built['forms_s']:.2f} s wall "
+            f"(CPU: parse {built.get('parse_s', 0):.2f} s, images {built.get('image_s', 0):.2f} s "
+            f"over {built['workers']} threads), style {built['style_s']:.2f} s, save "
+            f"{built['save_s']:.2f} s; {built['lines_per_s']:.1f} lines/s; peak "
+            f"{built['peak_mem_gb']:.3f} GiB")
+        again: dict = {}
+        t0 = time.perf_counter()
+        reloaded = load_or_build_cache(**kwargs, stats=again)
+        same = (reloaded.sample_ids == cache.sample_ids
+                and np.array_equal(reloaded.strokes, cache.strokes)
+                and np.array_equal(reloaded.style, cache.style))
+        if "loaded" not in again or "built" in again or not same:
+            fail(f"iam {kind}: the second call did not load the saved cache ({again})")
+        built["reload_s"] = time.perf_counter() - t0
+        log(f"  {kind}: reloaded {Path(again['loaded']).name} in {built['reload_s']:.2f} s")
+        out[kind] = built
+        caches[kind] = cache
+
+    set_train_flags(True)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    trainer = train_main(cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = trainer.exp_dir
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    vals = [r["val_loss"] for r in rows if "val_loss" in r]
+    # Every forward with the flags on launches 9 and 6: the train steps and
+    # the validation passes (steps 10 and 20, 6 levels a batch).
+    n_val = len(caches["validation"])
+    val_forwards = 2 * -(-n_val // min(TRAIN_B, n_val)) * 6
+    forwards = TRAIN_STEPS + val_forwards
+    got = (fa.launches["fused_attention"], fc.launches["fused_conv_block"],
+           fk.launches["fused_bottleneck"] + fk.launches["fused_encoder_layer"])
+    want = (9 * forwards, 6 * forwards, 0)
+    set_train_flags(False)
+    log(f"  training: {TRAIN_STEPS} steps + {val_forwards} validation forwards in {wall:.1f} s; "
+        f"launches {got} (want {want}); losses {losses}; val losses {vals}")
+    if got != want:
+        fail(f"iam train: launches {got}, expected {want}")
+    if len(losses) != TRAIN_STEPS // 5 or len(vals) != 2 or not np.all(np.isfinite(losses + vals)):
+        fail("iam train: bad metrics.jsonl (losses or the val_freq pass)")
+    out["training"] = dict(wall_s=wall, losses=losses, val_losses=vals, launches=list(got),
+                           forwards=forwards)
+
+    soup = run / "soup_10_20"
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        average_main(["--dst", str(soup), "--experiment_path", str(run)])
+    a, b = (torch.load(run / f"checkpoint_{k}", map_location="cpu", weights_only=True)
+            for k in (10, 20))
+    mean = torch.load(soup, map_location="cpu", weights_only=True)
+    err = max((mean["state_dict"][k].double() - (a["state_dict"][k].double()
+               + b["state_dict"][k].double()) / 2).abs().max().item() for k in a["state_dict"])
+    model = DiffusionModel.load(soup, device="cuda")
+    finite = all(torch.isfinite(p).all() for p in model.parameters())
+    log(f"  {said.getvalue().strip()}; max |soup - mean| {err:.3g}; loads, finite {finite}")
+    if err > 1e-6 or not finite or "ema_state_dict" not in mean:
+        fail("iam: the averaged checkpoint is wrong")
+    del model
+
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        t0 = time.perf_counter()
+        val = eval_main([f"--experiment_path={run}", f"--checkpoint_path={soup}",
+                         "--split=validation", "--batch_size=96"])
+        eval_s = time.perf_counter() - t0
+    line = said.getvalue().strip()
+    log(f"  eval CLI (the soup, validation): {line!r}, {eval_s:.1f} s")
+    if not line.startswith("Val Loss: ") or "| Val Score: " not in line or not np.isfinite(
+            val).all():
+        fail(f"iam: bad eval line {line!r}")
+    out["eval"] = dict(line=line, values=[float(v) for v in val], wall_s=eval_s)
+
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        t0 = time.perf_counter()
+        scores = metrics_main([f"--experiment_path={run}", "--n_samples=64", "--batch_size=32"])
+        metrics_s = time.perf_counter() - t0
+    ks = scores["ks"]
+    log(f"  metrics CLI: n {scores['n']}, sampler {scores['sampler']}, ks_mean {ks['ks_mean']}, "
+        f"FSD {scores['frechet_style_distance']} (real vs real "
+        f"{scores.get('fsd_real_vs_real')}), {metrics_s:.1f} s")
+    if (json.loads(said.getvalue().strip().splitlines()[-1]) != scores or scores["n"] != 64
+            or not np.all(np.isfinite(list(ks.values())))
+            or not np.isfinite(scores["frechet_style_distance"])):
+        fail(f"iam: bad metrics result {scores}")
+    out["metrics"] = dict(scores, wall_s=metrics_s)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  iam phase {out['phase_s']:.1f} s")
+    report["iam"] = out
+
+
 def train_rate_phase(report):
     from dhg_torch.config import DLConfig
     from dhg_torch.tools.profile_train import best_config
@@ -1163,6 +1341,7 @@ def main() -> None:
     ap.add_argument("--out", help="also write the full report as JSON here")
     args = ap.parse_args()
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     try:
@@ -1226,6 +1405,8 @@ def main() -> None:
         infer_phase(run, tmp, report)
         log("== serve: dhg_torch.serve on the train run's model_final (f32, CUDA graphs)")
         serve_phase(run, tmp, report)
+        log("== iam: a generated IAM tree -> caches -> train -> average -> eval, metrics")
+        iam_phase(report, tmp)
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
 
@@ -1248,6 +1429,8 @@ def main() -> None:
                    t4_counts[96][0], "T4 region B=96"),
     ]
     report["kernels"] = kernels
+    report["script_s"] = time.perf_counter() - t_script
+    log(f"== done in {report['script_s']:.1f} s (build {report['build_s']:.1f} s)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -9,11 +9,15 @@ The layout mirrors `dhg/` so each module has an obvious counterpart:
   dhg_torch.kernels    — hand-written CUDA kernels (sm_90a) beside their
                          plain PyTorch versions
   dhg_torch.data       — the 73-id character tokenizer, training batches,
-                         style images (PNG)
+                         line images (PNG, TIFF), IAM stroke parsing and
+                         the packed IAM cache
+  dhg_torch.native     — dhg's C++ stroke scanner, built with g++ at first use
   dhg_torch.inference  — generate / sample_lines (the line sampler) and the
                          infer CLI (utils.vis renders PNG / SVG)
   dhg_torch.train      — the trainer and its CLI (with config, checkpoint,
                          eval and utils.experiment)
+  dhg_torch.eval, .metrics — the validation loss and the generation metrics
+                         of a saved run, each with its CLI
   dhg_torch.weights    — dhg params / exported .pth -> the port's state_dict
 
 Activations stay channel-last [B, T, C] as in dhg. Entry points default to

@@ -74,6 +74,27 @@ def resolve_checkpoint(experiment_path: Path | str) -> Path | None:
     return numbered[-1][1] if numbered else None
 
 
+def resolve_run_paths(experiment_path=None, config_path=None, checkpoint_path=None
+                      ) -> tuple[str, str]:
+    """(config, checkpoint) of a run: experiment_path supplies config.yml
+    and resolve_checkpoint's pick; explicit paths win. Raises if either is
+    still missing."""
+    if experiment_path:
+        exp = Path(experiment_path)
+        if not config_path:
+            config_path = str(exp / "config.yml")
+        if not checkpoint_path:
+            found = resolve_checkpoint(exp)
+            if found is not None:
+                checkpoint_path = str(found)
+    if not config_path or not checkpoint_path:
+        raise ValueError(
+            "Both config_path and checkpoint_path must be provided, "
+            "either directly or via experiment_path."
+        )
+    return str(config_path), str(checkpoint_path)
+
+
 def prune_numbered_checkpoints(exp_dir: Path | str, keep: int) -> list[Path]:
     """Delete all but the `keep` highest checkpoint_<N>; named saves
     (model_final, model_last, checkpoint_last) are never candidates."""

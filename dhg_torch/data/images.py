@@ -1,12 +1,14 @@
 """Line-image loading and preprocessing (port of dhg/data/images.py), with
 numpy and the standard library only: the card's machine has no cv2.
 
-  * read_img: PNG -> 8-bit grey -> remove_whitespace(thresh=127) -> bicubic
-    resize to the target height, preserving the aspect ratio;
+  * read_img: PNG or TIFF -> 8-bit grey -> remove_whitespace(thresh=127) ->
+    bicubic resize to the target height, preserving the aspect ratio;
   * remove_whitespace: crop to the rows/cols holding a pixel below the
     threshold, with dhg's quirk (the last dark row and col are excluded);
   * pad_img: right-pad with white (255) to a fixed width;
-  * read_png / write_png: a PNG codec on zlib and struct.
+  * read_png / write_png: a PNG codec on zlib and struct;
+  * read_tiff / write_tiff: a TIFF reader of the baseline formats (IAM's line
+    images are TIFF) and a baseline grey writer.
 
 What dhg's cv2 calls do, and what this module does in their place:
   * cv2.imread(IMREAD_GRAYSCALE) reads through libpng with
@@ -15,9 +17,12 @@ What dhg's cv2 calls do, and what this module does in their place:
     dropped, a palette is expanded first, and 1/2/4-bit grey is scaled to
     8 bits. read_png does the same for 8-bit grey, grey+alpha, RGB and RGBA,
     and for palettes and grey of 1, 2, 4 or 8 bits; non-interlaced, all
-    five filter types. Any other file (16-bit, interlaced, not a PNG)
-    raises ValueError naming what it is: a documented narrowing, since
-    images are PNG only here.
+    five filter types. Any other PNG (16-bit, interlaced) raises ValueError
+    naming what it is: a documented narrowing.
+  * cv2 reads a TIFF through libtiff's RGBA interface, then imgcodecs'
+    fixed-point BGR -> grey. read_tiff gives the same grey for the formats
+    it takes (see its docstring) and raises ValueError naming the tag and
+    its value for any other: also a documented narrowing.
   * cv2.resize(INTER_CUBIC) on uint8: cubic weights with a = -0.75 at
     source position (d + 0.5) * src / dst - 0.5, replicated borders, a
     horizontal then a vertical pass, rounded back to uint8. resize_cubic
@@ -124,7 +129,7 @@ def read_png(path: PathLike | str) -> np.ndarray:
         data = f.read()
     if not data.startswith(PNG_SIGNATURE):
         kind = data[:4]
-        raise ValueError(f"{path}: not a PNG file (starts {kind!r}); only PNG images are read")
+        raise ValueError(f"{path}: not a PNG file (starts {kind!r}); read_img takes PNG or TIFF")
     header, idat, palette = None, [], None
     for ctype, body in _chunks(data, path):
         if ctype == b"IHDR":
@@ -192,6 +197,209 @@ def write_png(path: PathLike | str, img: np.ndarray) -> None:
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
+# -- TIFF -------------------------------------------------------------------
+
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i"}  # the integer field types
+_TIFF_TAG_NAMES = {
+    259: "Compression", 262: "PhotometricInterpretation",
+    258: "BitsPerSample", 266: "FillOrder", 274: "Orientation", 277: "SamplesPerPixel",
+    284: "PlanarConfiguration", 317: "Predictor", 322: "TileWidth", 338: "ExtraSamples",
+    339: "SampleFormat",
+}
+_TIFF_COMPRESSIONS = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
+
+
+def _tiff_refuse(path, tag: int, value) -> ValueError:
+    return ValueError(f"{path}: TIFF {_TIFF_TAG_NAMES.get(tag, tag)} (tag {tag}) = {value} "
+                      "is not supported")
+
+
+def _tiff_tags(data: bytes, path) -> tuple[str, dict[int, list[int]]]:
+    """The byte order and the integer tags of the first image directory."""
+    order = {b"II": "<", b"MM": ">"}.get(data[:2])
+    if order is None or len(data) < 8:
+        raise ValueError(f"{path}: not a TIFF file")
+    (magic,) = struct.unpack(order + "H", data[2:4])
+    if magic == 43:
+        raise ValueError(f"{path}: BigTIFF is not supported")
+    if magic != 42:
+        raise ValueError(f"{path}: not a TIFF file (magic {magic})")
+    (ifd,) = struct.unpack(order + "I", data[4:8])
+    (n,) = struct.unpack(order + "H", data[ifd:ifd + 2])
+    tags: dict[int, list[int]] = {}
+    for k in range(n):
+        tag, typ, count, field = struct.unpack(order + "HHI4s", data[ifd + 2 + 12 * k:
+                                                                     ifd + 14 + 12 * k])
+        fmt = _TIFF_TYPES.get(typ)
+        if fmt is None:  # text, rationals, floats: no tag read here needs them
+            continue
+        size = struct.calcsize(fmt) * count
+        if size <= 4:
+            raw = field[:size]
+        else:
+            (off,) = struct.unpack(order + "I", field)
+            raw = data[off:off + size]
+        tags[tag] = list(struct.unpack(order + fmt * count, raw))
+    return order, tags
+
+
+def _lzw_decode(data: bytes, path) -> bytes:
+    """TIFF LZW: codes MSB first, 9 to 12 bits, the width growing one code
+    early (at 511, 1023, 2047), 256 clears the table, 257 ends."""
+    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
+        raise ValueError(f"{path}: old-style (pre-6.0) TIFF LZW is not supported")
+    table = [bytes([i]) for i in range(256)] + [b"", b""]
+    out = bytearray()
+    buf = nbits = pos = 0
+    width, prev = 9, None
+    n = len(data)
+    while True:
+        while nbits < width:
+            if pos >= n:
+                return bytes(out)
+            buf = ((buf << 8) | data[pos]) & 0xFFFFFF
+            pos += 1
+            nbits += 8
+        nbits -= width
+        code = (buf >> nbits) & ((1 << width) - 1)
+        if code == 256:
+            del table[258:]
+            width, prev = 9, None
+            continue
+        if code == 257:
+            return bytes(out)
+        if prev is None:
+            entry = table[code]
+        else:
+            if code < len(table):
+                entry = table[code]
+            elif code == len(table):
+                entry = prev + prev[:1]
+            else:
+                raise ValueError(f"{path}: corrupt LZW data (code {code})")
+            table.append(prev + entry[:1])
+            if len(table) >= (1 << width) - 1 and width < 12:
+                width += 1
+        out += entry
+        prev = entry
+
+
+def _packbits_decode(data: bytes) -> bytes:
+    out = bytearray()
+    pos, n = 0, len(data)
+    while pos < n:
+        h = data[pos]
+        pos += 1
+        if h < 128:  # the next h + 1 bytes as they are
+            out += data[pos:pos + h + 1]
+            pos += h + 1
+        elif h > 128:  # the next byte 257 - h times
+            out += data[pos:pos + 1] * (257 - h)
+            pos += 1
+    return bytes(out)
+
+
+def read_tiff(path: PathLike | str) -> np.ndarray:
+    """The first image of the TIFF at `path` as uint8 grey [H, W], as
+    cv2.imread(path, IMREAD_GRAYSCALE) reads it through libtiff.
+
+    Takes either byte order; strips (not tiles); compression none, LZW (with
+    or without the horizontal-differencing predictor), PackBits and Deflate;
+    1-bit bilevel (WhiteIsZero or BlackIsZero), 8-bit grey, 8-bit RGB and
+    RGBA, chunky. Colour becomes grey by imgcodecs' fixed-point rule
+    (4899 R + 9617 G + 1868 B + 8192) >> 14; libtiff first premultiplies
+    unassociated alpha (ExtraSamples = 2), (v a + 127) // 255, and drops
+    any fourth sample. Anything else
+    raises ValueError naming the tag and its value."""
+    with open(path, "rb") as f:
+        data = f.read()
+    order, tags = _tiff_tags(data, path)
+
+    def one(tag, default=None):
+        v = tags.get(tag)
+        return default if v is None else v[0]
+
+    if 322 in tags or 324 in tags:
+        raise ValueError(f"{path}: tiled TIFF (TileWidth = {one(322)}) is not supported")
+    width, height = one(256), one(257)
+    spp, photometric = one(277, 1), one(262)
+    bits = set(tags.get(258, [1]))
+    compression, predictor = one(259, 1), one(317, 1)
+    for tag, ok in ((266, (1,)), (274, (1,)), (284, (1,)), (339, (1,))):
+        if one(tag, 1) not in ok:
+            raise _tiff_refuse(path, tag, one(tag))
+    if compression not in _TIFF_COMPRESSIONS:
+        raise _tiff_refuse(path, 259, compression)
+    if photometric in (0, 1) and spp == 1 and bits <= {1, 8} and len(bits) == 1:
+        depth = bits.pop()
+    elif photometric == 2 and spp in (3, 4) and bits == {8}:
+        depth = 8
+        if spp == 4 and one(338, 0) not in (0, 1, 2):
+            raise _tiff_refuse(path, 338, one(338))
+    elif photometric not in (0, 1, 2):
+        raise _tiff_refuse(path, 262, photometric)
+    elif bits != {8} and bits != {1}:
+        raise _tiff_refuse(path, 258, sorted(bits) if len(bits) > 1 else bits.pop())
+    else:
+        raise _tiff_refuse(path, 277, spp)
+    if predictor not in (1, 2) or (predictor == 2 and depth != 8):
+        raise _tiff_refuse(path, 317, predictor)
+
+    stride = (width * spp * depth + 7) // 8
+    raw = bytearray()
+    for off, size in zip(tags[273], tags[279]):
+        strip = data[off:off + size]
+        if compression == 5:
+            strip = _lzw_decode(strip, path)
+        elif compression == 32773:
+            strip = _packbits_decode(strip)
+        elif compression in (8, 32946):
+            strip = zlib.decompress(strip)
+        raw += strip
+    if len(raw) < stride * height:
+        raise ValueError(f"{path}: TIFF image data is truncated")
+    rows = np.frombuffer(bytes(raw[:stride * height]), np.uint8).reshape(height, stride)
+    if depth == 1:
+        grey = np.unpackbits(rows, axis=1)[:, :width] * np.uint8(255)
+        return 255 - grey if photometric == 0 else grey
+    px = rows.reshape(height, width, spp)
+    if predictor == 2:
+        px = (np.cumsum(px, axis=1, dtype=np.int64) & 255).astype(np.uint8)
+    if photometric == 0:
+        return 255 - px[..., 0]
+    if spp == 1:
+        return px[..., 0].copy()
+    rgb = px[..., :3].astype(np.int64)
+    if spp == 4 and one(338) == 2:  # unassociated alpha: premultiply
+        rgb = (rgb * px[..., 3:4].astype(np.int64) + 127) // 255
+    return ((4899 * rgb[..., 0] + 9617 * rgb[..., 1] + 1868 * rgb[..., 2] + 8192) >> 14
+            ).astype(np.uint8)
+
+
+def write_tiff(path: PathLike | str, img: np.ndarray) -> None:
+    """Write a uint8 [H, W] grey array as a baseline TIFF: little-endian,
+    uncompressed, one strip, BlackIsZero."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"write_tiff takes [H, W] uint8, got {img.shape}")
+    h, w = img.shape
+    body = img.tobytes()
+    ifd = 8 + len(body) + (len(body) & 1)
+    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 1, 8), (259, 3, 1, 1),
+               (262, 3, 1, 1), (273, 4, 1, 8), (277, 3, 1, 1), (278, 4, 1, h),
+               (279, 4, 1, len(body)), (282, 5, 1, ifd + 6 + 12 * 12),
+               (283, 5, 1, ifd + 6 + 12 * 12 + 8), (296, 3, 1, 2)]
+    out = bytearray(b"II*\x00" + struct.pack("<I", ifd) + body)
+    out += b"\x00" * (ifd - len(out))
+    out += struct.pack("<H", len(entries))
+    for tag, typ, count, value in entries:
+        fmt = "<HHIH2x" if typ == 3 else "<HHII"
+        out += struct.pack(fmt, tag, typ, count, value)
+    out += struct.pack("<I", 0) + struct.pack("<IIII", 72, 1, 72, 1)
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
 def _cubic_taps(dst: int, src: int) -> tuple[np.ndarray, np.ndarray]:
     """Cubic interpolation (a = -0.75) along one axis: for each output index,
     the 4 source indices (replicated at the borders) and their weights."""
@@ -207,23 +415,53 @@ def _cubic_taps(dst: int, src: int) -> tuple[np.ndarray, np.ndarray]:
     return idx, weights
 
 
+def _resize_cubic_f64(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """A horizontal then a vertical cubic pass in float64."""
+    h, w = img.shape
+    xi, xw = _cubic_taps(width, w)
+    yi, yw = _cubic_taps(height, h)
+    src = img.astype(np.float64)
+    # Tap by tap: four gathers of [h, width], summed in the taps' order.
+    rows = src[:, xi[:, 0]] * xw[:, 0]
+    for k in range(1, 4):
+        rows += src[:, xi[:, k]] * xw[:, k]  # [h, width]
+    out = rows[yi[:, 0]] * yw[:, 0, None]
+    for k in range(1, 4):
+        out += rows[yi[:, k]] * yw[:, k, None]
+    return out  # [height, width]
+
+
 def resize_cubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """Bicubic resize of a uint8 [H, W] image to [height, width], as
     cv2.resize(INTER_CUBIC): a horizontal then a vertical pass in float64,
     rounded to the nearest integer and clipped to uint8."""
-    h, w = img.shape
-    if (h, w) == (height, width):
+    if img.shape == (height, width):
         return img.copy()
-    xi, xw = _cubic_taps(width, w)
-    yi, yw = _cubic_taps(height, h)
-    rows = (img.astype(np.float64)[:, xi] * xw[None]).sum(axis=-1)  # [h, width]
-    out = (rows[yi] * yw[:, :, None]).sum(axis=1)  # [height, width]
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return np.clip(np.rint(_resize_cubic_f64(img, width, height)), 0, 255).astype(np.uint8)
+
+
+def resize_cubic_float(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """The same resize of a float image, as cv2.resize(INTER_CUBIC) on
+    float32: float32 out, neither rounded nor clipped."""
+    if img.shape == (height, width):
+        return img.astype(np.float32)
+    return _resize_cubic_f64(img, width, height).astype(np.float32)
+
+
+def read_grey(path: PathLike | str) -> np.ndarray:
+    """The image at `path` as uint8 grey [H, W], as cv2.imread(path,
+    IMREAD_GRAYSCALE) gives it: a TIFF through read_tiff, else a PNG."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        return read_tiff(path)
+    return to_grey(read_png(path))
 
 
 def read_img(path: PathLike | str, height: int) -> np.ndarray:
-    """A style image: grey, cropped to its ink, resized to `height` rows."""
-    img = remove_whitespace(to_grey(read_png(path)), thresh=127)
+    """A line image (PNG or TIFF): grey, cropped to its ink, resized to
+    `height` rows."""
+    img = remove_whitespace(read_grey(path), thresh=127)
     h, w = img.shape
     return resize_cubic(img, height * w // h, height)
 

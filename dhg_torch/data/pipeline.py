@@ -26,6 +26,17 @@ class IAMCache:
     def __len__(self) -> int:
         return len(self.sample_ids)
 
+    def save(self, path) -> None:
+        """An .npz with dhg's keys, so either package loads the other's."""
+        np.savez_compressed(path, strokes=self.strokes, text=self.text, style=self.style,
+                            sample_ids=np.array(self.sample_ids))
+
+    @classmethod
+    def load(cls, path) -> "IAMCache":
+        with np.load(path, allow_pickle=False) as z:
+            return cls(strokes=z["strokes"], text=z["text"], style=z["style"],
+                       sample_ids=[str(s) for s in z["sample_ids"]])
+
 
 @dataclass
 class DeviceDataset:

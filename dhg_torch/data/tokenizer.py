@@ -29,6 +29,16 @@ class Tokenizer:
         """Encode a string to token ids, appending EOS."""
         return [self.tokens.get(c, UNK_ID) for c in text] + [EOS_ID]
 
+    def encode_padded(self, text: str, max_len: int) -> np.ndarray:
+        """Encode and zero-pad to max_len (int32), as the packed cache stores
+        texts. Requires len(text) + 1 <= max_len."""
+        ids = self.encode(text)
+        if len(ids) > max_len:
+            raise ValueError(f"text too long: {len(ids)} > {max_len}")
+        out = np.zeros(max_len, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out
+
     def encode_batch(self, texts: list[str], max_len: int) -> np.ndarray:
         """[B, max_len] int64 ids, each row EOS-terminated and zero-padded."""
         out = np.zeros((len(texts), max_len), dtype=np.int64)

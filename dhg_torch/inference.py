@@ -289,23 +289,12 @@ def infer(
     back to the config's dataset_args.style_weights, then the repo default.
     Randomness is a torch.Generator seeded with `seed` on `device`.
     """
-    from dhg_torch.checkpoint import resolve_checkpoint
+    from dhg_torch.checkpoint import resolve_run_paths
     from dhg_torch.config import DLConfig
     from dhg_torch.models.denoiser import DiffusionModel
 
-    if experiment_path:
-        exp = Path(experiment_path)
-        if not config_path:
-            config_path = str(exp / "config.yml")
-        if not checkpoint_path:
-            found = resolve_checkpoint(exp)
-            if found is not None:
-                checkpoint_path = str(found)
-    if not config_path or not checkpoint_path:
-        raise ValueError(
-            "Both config_path and checkpoint_path must be provided, "
-            "either directly or via experiment_path."
-        )
+    config_path, checkpoint_path = resolve_run_paths(experiment_path, config_path,
+                                                     checkpoint_path)
     dev = resolve_device(device)
     model = DiffusionModel.load(checkpoint_path, dtype=None, use_ema=use_ema, device=dev)
     cfg = DLConfig.load(config_path)

@@ -20,10 +20,13 @@ report.json. SIGINT/SIGTERM save checkpoint_last and model_last at the next
 step boundary. experiment.resume_from=<checkpoint_N> resumes params,
 optimizer state, EMA and the step count.
 
+Data: training_args.dataset "iam" (the default) builds or loads the packed
+cache of experiment.data_dir's split (dhg_torch.data.iam, style vectors on
+the training device); "synthetic" needs no files.
+
 Not in the port yet: training_args.steps_per_call is ignored (dhg scans K
 steps in one TPU program; here each step is its own call); profile_dir is
-ignored; a mesh with model_parallel > 1 raises; dataset "iam" raises (the
-IAM loader is still to be ported).
+ignored; a mesh with model_parallel > 1 raises.
 """
 
 from __future__ import annotations
@@ -179,20 +182,49 @@ def make_optimizer(cfg: DLConfig, model: nn.Module, lr_override: float | None = 
                      clip=ta.clip_grad, clip_mode=ta.clip_mode or "norm")
 
 
-def load_cache(cfg: DLConfig, kind: str):
-    """The packed cache for 'train' or 'validation'. Synthetic runs hold out
-    a validation set from seed + 777 (n = max(16, max_files // 4))."""
+def load_cache(cfg: DLConfig, kind: str, device="cuda"):
+    """The packed cache for 'train' or 'validation'.
+
+    Synthetic runs (training_args.dataset: synthetic) hold out a validation
+    set from seed + 777 (n = max(16, max_files // 4)). IAM runs read the
+    split from experiment.splits_file through load_or_build_cache, whose
+    style vectors are extracted on `device`: validation returns None when
+    its split has no samples on disk; an empty train split raises."""
     ta = cfg.training_args
-    if (ta.dataset or "iam") != "synthetic":
-        raise NotImplementedError(
-            f"dataset {ta.dataset!r}: the port reads synthetic data only so far "
-            "(training_args.dataset=synthetic)")
-    if kind == "validation":
-        n, seed = max(16, (ta.max_files or 64) // 4), (cfg.experiment.seed or 0) + 777
-    else:
-        n, seed = ta.max_files or 64, cfg.experiment.seed or 0
-    return synthetic_cache(n=n, max_seq_len=cfg.dataset_args.max_seq_len or 480,
-                           max_text_len=cfg.dataset_args.max_text_len or 50, seed=seed)
+    if (ta.dataset or "iam") == "synthetic":
+        if kind == "validation":
+            n, seed = max(16, (ta.max_files or 64) // 4), (cfg.experiment.seed or 0) + 777
+        else:
+            n, seed = ta.max_files or 64, cfg.experiment.seed or 0
+        return synthetic_cache(n=n, max_seq_len=cfg.dataset_args.max_seq_len or 480,
+                               max_text_len=cfg.dataset_args.max_text_len or 50, seed=seed)
+    from dhg_torch.data.iam import load_or_build_cache
+
+    try:
+        return load_or_build_cache(**iam_cache_kwargs(cfg, kind, device))
+    except RuntimeError:  # no samples on disk for this split
+        if kind == "validation":
+            return None
+        raise
+
+
+def iam_cache_kwargs(cfg: DLConfig, kind: str, device="cuda") -> dict:
+    """The arguments of load_or_build_cache for a config's IAM split."""
+    ta, da = cfg.training_args, cfg.dataset_args
+    return dict(
+        cache_dir=ta.cache_dir or "./data/cache",
+        data_dir=cfg.experiment.data_dir,
+        kind=kind,
+        splits_file=cfg.experiment.splits_file,
+        img_height=da.img_height or 96,
+        img_width=da.img_width or 1400,
+        max_text_len=da.max_text_len or 50,
+        max_seq_len=da.max_seq_len or 480,
+        max_files=ta.max_files,
+        seed=cfg.experiment.seed or 54321,
+        style_weights=da.style_weights,
+        device=device,
+    )
 
 
 class Draws(NamedTuple):
@@ -242,7 +274,8 @@ class Trainer:
 
     def load_dataset(self) -> DeviceDataset:
         if self.data is None:
-            self.data = DeviceDataset.from_cache(load_cache(self.cfg, "train"), self.device)
+            self.data = DeviceDataset.from_cache(load_cache(self.cfg, "train", self.device),
+                                                 self.device)
         return self.data
 
     # -- the step --------------------------------------------------------------
@@ -327,7 +360,7 @@ class Trainer:
         if cfg.experiment.resume_from:
             start = self.resume(cfg.experiment.resume_from)
             logger.info(f"Resumed from {cfg.experiment.resume_from} at step {start}")
-        val_cache = load_cache(cfg, "validation") if ta.val_freq else None
+        val_cache = load_cache(cfg, "validation", self.device) if ta.val_freq else None
         logger.info(f"Starting train model, host: {meta['host_name']}, exp_dir: {meta['exp_dir']}\n")
         exp_dir = Path(meta["exp_dir"])
         t0 = time.time()

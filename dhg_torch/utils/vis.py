@@ -264,6 +264,29 @@ def _stamp_segment(img, c0, r0, c1, r1, radius):
     img[rs:re + 1, cs:ce + 1][dist2 <= radius * radius] = 0
 
 
+def stamp_segments(img: np.ndarray, a: np.ndarray, b: np.ndarray, radius: float,
+                   value=0) -> None:
+    """Ink `img` [H, W] in place along the segments a[i] -> b[i] ([N, 2],
+    (column, row) in pixels): each sampled about once a pixel, a round pen
+    of `radius` pixels stamped at every sample (no anti-aliasing). The
+    metrics rasteriser's geometry, which dhg's rasterize_strokes fixes."""
+    seg_len = np.hypot(*(b - a).T)
+    n = np.ceil(seg_len).astype(int) + 1
+    total = int(n.sum())
+    seg_idx = np.repeat(np.arange(len(n)), n)
+    within = np.arange(total) - np.repeat(np.cumsum(n) - n, n)
+    frac = within / np.maximum(np.repeat(n - 1, n), 1)
+    dense = a[seg_idx] + frac[:, None] * (b - a)[seg_idx]
+    r = max(int(np.ceil(radius)), 1)
+    ox, oy = np.meshgrid(np.arange(-r, r + 1), np.arange(-r, r + 1))
+    disk = (ox**2 + oy**2) <= radius**2 + 0.25
+    cx = np.round(dense[:, 0]).astype(int)
+    cy = np.round(dense[:, 1]).astype(int)
+    height, width = img.shape
+    for dx, dy in zip(ox[disk], oy[disk]):
+        img[np.clip(cy + dy, 0, height - 1), np.clip(cx + dx, 0, width - 1)] = value
+
+
 def save_strokes(
     strokes: np.ndarray,
     name: str,

@@ -97,7 +97,7 @@ def test_interrupt_saves_checkpoint_last(tmp_path, monkeypatch):
     assert not tr._InterruptFlag.pending
 
 
-def test_unported_options_refuse():
+def test_unported_options_refuse(tmp_path):
     base = {"experiment": {}, "dataset_args": {}, "optimizer": {"type": "torch.optim.Adam"},
             "training_args": {"channels": 16, "att_layers_num": 1, "batch_size": 2,
                               "warmup_steps": 10}}
@@ -105,8 +105,14 @@ def test_unported_options_refuse():
     mesh["training_args"]["mesh"] = {"model_parallel": 2}
     with pytest.raises(NotImplementedError, match="model_parallel"):
         tr.Trainer(cf.DLConfig(mesh), device="cpu")
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        tr.load_cache(cf.DLConfig(base), "train")
+    # dataset "iam" (the default) is ported: an empty train split raises, an
+    # empty validation split reads as None, as in dhg.
+    (tmp_path / "splits.json").write_text(json.dumps({"train": [], "validation": []}))
+    base["experiment"] = {"data_dir": str(tmp_path), "splits_file": str(tmp_path / "splits.json")}
+    base["training_args"]["cache_dir"] = str(tmp_path / "cache")
+    with pytest.raises(RuntimeError, match="no valid IAM samples"):
+        tr.load_cache(cf.DLConfig(base), "train", device="cpu")
+    assert tr.load_cache(cf.DLConfig(base), "validation", device="cpu") is None
 
 
 def test_config_reads_without_yaml(monkeypatch):

@@ -104,6 +104,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  soup (one finite Val Loss line); the metrics CLI (64
                  samples, batch 32, the f32 60-step sampler at seq_len 480:
                  finite KS distances and frechet_style_distance)
+  7e. distill  — dhg_torch.distill.main (f32, as dhg's CLI) from the train
+                 run's model_final, 60 -> 30, 20 steps at batch 96, flags
+                 off then on, on the same draws: launches zeroed before
+                 each CLI run and read after (with the flags on 27
+                 attention and 18 conv-block launches a step, 9 and 6 for
+                 each of the closing probe's 90 sampler levels; none off);
+                 the first step's loss triples within 1e-4 relative; steps/s
+                 from CUDA events; the infer CLI on the student with no
+                 flags must take 30 steps, the halved grid and DDIM;
+                 tools/probe_distill --multi=1 (f32) finite; then the
+                 probe's three generate calls on teacher and student loaded
+                 in bf16 at B = 8: 120 bottleneck and 240 encoder-layer
+                 launches, finite
+  7f. multiprocess — `python -m dhg_torch.train` (f32, batch 96, both
+                 train flags, 5 steps): in an NCCL group of one process,
+                 equal bit for bit to the run without a group; two
+                 processes sharing the card under gloo at data_parallel 2,
+                 then model_parallel 2 (each run.log shows its mesh), losses
+                 within 1e-4 relative of the run without a group, one run
+                 dir; the model_parallel run's model_final loads strictly
+                 into a one-device model
   8. train rate — train_steps_per_sec_batch96 with both kernels and with
                  both flags off, in turns (off, on, on, off): CUDA events
                  over 10 steps after one warm-up step
@@ -160,6 +181,8 @@ LONG_PROMPT = "the quick brown fox jumps over the lazy dog again"  # 49 characte
 LONG_T8 = 101  # infer_seq_len(50) // 8
 LONG_SEQ = 8 * LONG_T8  # 808 steps: enc3 at T = 404, enc5 at 202
 TRAIN_B, TRAIN_STEPS = 96, 20  # T = 480 (tools/profile_train.py::best_config)
+DISTILL_STEPS = 20  # phase 7e: 60 -> 30 from the train run's model_final
+MP_STEPS = 5  # phase 7f: steps of each multi-process train run
 IAM_FORMS, IAM_SEED = (192, 48), 7  # generated train / validation forms
 # The training forward's attention calls at T = 480, L = 50: (label, H, Tq,
 # Tk, D, masked, launches a step).
@@ -1286,6 +1309,275 @@ def iam_phase(report, tmp):
     report["iam"] = out
 
 
+def kernel_launches() -> dict:
+    from dhg_torch.kernels import fused_attention as fa
+    from dhg_torch.kernels import fused_bottleneck as fk
+    from dhg_torch.kernels import fused_conv_block as fc
+
+    return {**fa.launches, **fc.launches, **fk.launches}
+
+
+def distill_phase(run, tmp, report):
+    """Phase 7e: dhg_torch.distill.main (f32, as dhg's CLI) from the train
+    run's model_final, 60 -> 30 for DISTILL_STEPS steps, with both train
+    flags off and then on on the same draws (launch counts zeroed before
+    each CLI run and read after); the infer CLI on the student with no
+    flags; tools/probe_distill --multi=1 (f32); then the probe's three
+    generate calls on teacher and student loaded in bf16 at B = 8, where
+    the sampler kernels run."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from dhg_torch import distill, inference
+    from dhg_torch.config import DLConfig
+    from dhg_torch.models.denoiser import DiffusionModel
+    from dhg_torch.tools import probe_distill
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # Each step's loss triple and a CUDA event after it, read once the run ends.
+    steps: list = []
+    real_step = distill.Distiller.step
+
+    def recorded(self, arrays, d):
+        metrics = real_step(self, arrays, d)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        steps.append((metrics, ev))
+        return metrics
+
+    distill.Distiller.step = recorded
+    runs = {}
+    try:
+        for label in ("off", "on"):
+            set_train_flags(label == "on")
+            steps.clear()
+            reset_all_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                student = distill.main([f"--experiment_path={run}", f"--steps={DISTILL_STEPS}",
+                                        f"--experiment.work_dir={tmp}/distill_{label}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernel_launches()
+            losses = [m.tolist() for m, _ in steps]
+            rate = (len(steps) - 1) / (steps[0][1].elapsed_time(steps[-1][1]) / 1e3)
+            runs[label] = dict(student=str(student), wall_s=wall, steps_per_s=rate,
+                               losses=losses, launches=counts)
+            log(f"  flags {label}: {DISTILL_STEPS} distill steps at batch {TRAIN_B}, "
+                f"{rate:.3f} steps/s (steps 2-{DISTILL_STEPS}, CUDA events); CLI {wall:.1f} s; "
+                f"launches {counts}")
+    finally:
+        distill.Distiller.step = real_step
+        set_train_flags(False)
+    probe_steps = 60 + 30  # probe_fidelity: the teacher's 60 levels, the student's 30
+    want = {"fused_attention": 27 * DISTILL_STEPS + 9 * probe_steps,
+            "fused_conv_block": 18 * DISTILL_STEPS + 6 * probe_steps}
+    on, off = runs["on"]["launches"], runs["off"]["launches"]
+    if any(off.values()):
+        fail(f"distill: kernels launched with the flags off: {off}")
+    got = {k: on[k] for k in want}
+    if got != want or on["fused_bottleneck"] or on["fused_encoder_layer"] or on["fused_unet_t4"]:
+        fail(f"distill: launches {on}, expected {want} (27 / 18 a step, 9 / 6 a probe level)")
+    log(f"  launches with the flags on: attention {got['fused_attention']} = 27 x "
+        f"{DISTILL_STEPS} + 9 x {probe_steps} probe levels, conv block "
+        f"{got['fused_conv_block']} = 18 x {DISTILL_STEPS} + 6 x {probe_steps}")
+    a, b = np.asarray(runs["off"]["losses"]), np.asarray(runs["on"]["losses"])
+    if a.shape != (DISTILL_STEPS, 3) or not (np.isfinite(a).all() and np.isfinite(b).all()):
+        fail("distill: bad loss triples")
+    # At the copy the pen term can be exactly 0 on both sides: compare
+    # |diff| <= 1e-4 |off| (so 0 must equal 0), and report the ratio where
+    # it is defined.
+    diff = np.abs(a[0] - b[0])
+    nonzero = np.abs(a[0]) > 0
+    first = float(np.max(diff[nonzero] / np.abs(a[0][nonzero]))) if nonzero.any() else 0.0
+    log(f"  step 1 loss triples: off {a[0].tolist()}, on {b[0].tolist()}, "
+        f"max relative diff {first:.3g} (over the nonzero terms)")
+    if not np.all(diff <= 1e-4 * np.abs(a[0])):
+        fail("distill: the first step's loss triples differ by more than 1e-4 relative")
+    for c in (2, 5, 10, DISTILL_STEPS):
+        log(f"  step {c}: off {a[c - 1].tolist()} | on {b[c - 1].tolist()}")
+    out.update(runs=runs, first_step_rel_diff=first)
+
+    student = Path(runs["off"]["student"])
+    if DLConfig.load(student / "config.yml").training_args.distilled_steps != 30:
+        fail("distill: the student's config lacks distilled_steps 30")
+    seen = {}
+    real_generate = inference.generate
+
+    def spy(*args, **kw):
+        seen.update(kw)
+        return real_generate(*args, **kw)
+
+    style = scribble_png(os.path.join(tmp, "distill_style.png"), 11)
+    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "style_trunk_synth.npz")
+    inference.generate = spy
+    try:
+        t0 = time.perf_counter()
+        strokes = inference.main([f"--prompt={INFER_PROMPT}", f"--source={style}",
+                                  f"--experiment_path={student}", f"--style_weights={weights}",
+                                  f"--output={tmp}/student_infer"])
+        infer_s = time.perf_counter() - t0
+    finally:
+        inference.generate = real_generate
+    picked = (seen.get("n_steps"), seen.get("schedule"), seen.get("diffusion_mode"))
+    log(f"  infer on the student, no flags: n_steps {picked[0]}, schedule {picked[1]}, mode "
+        f"{picked[2]}; strokes {strokes.shape}, {infer_s:.2f} s")
+    if picked != (30, "halved", "ddim") or not np.isfinite(strokes).all():
+        fail(f"distill: infer on the student took {picked}, expected (30, halved, ddim)")
+    out["infer"] = dict(picked=list(picked), wall_s=infer_s)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        probe = probe_distill.main([f"--teacher={run}", f"--student={student}", "--multi=1"])
+    probe_s = time.perf_counter() - t0
+    nums = [probe["copy_vs_teacher_mse"], probe["student_vs_teacher_mse"],
+            *probe["copy_per_prompt"], *probe["student_per_prompt"]]
+    log(f"  probe_distill --multi=1 (f32): copy {probe['copy_vs_teacher_mse']:.4g}, student "
+        f"{probe['student_vs_teacher_mse']:.4g}, won {probe['prompts_won']}, {probe_s:.1f} s")
+    if probe["n_prompts"] != 8 or not np.isfinite(nums).all():
+        fail(f"distill: bad probe_distill result {probe}")
+    out["probe_cli"] = dict(probe, wall_s=probe_s)
+
+    teacher_bf = DiffusionModel.load(run / "model_final", dtype=torch.bfloat16, device="cuda")
+    student_bf = DiffusionModel.load(student / "model_final", dtype=torch.bfloat16,
+                                     device="cuda")
+    text = probe_distill.prompt_batch("", multi=True)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    probe_bf = probe_distill.probe(teacher_bf, student_bf, text, 60, 30, torch.device("cuda"))
+    torch.cuda.synchronize()
+    bf_s = time.perf_counter() - t0
+    counts = kernel_launches()
+    log(f"  the probe's 3 generate calls in bf16 at B = 8 (60 + 30 + 30 steps): launches "
+        f"{counts}, copy {probe_bf['copy_vs_teacher_mse']:.4g}, student "
+        f"{probe_bf['student_vs_teacher_mse']:.4g}, {bf_s:.1f} s")
+    want = {"fused_bottleneck": 120, "fused_encoder_layer": 240}
+    if {k: counts[k] for k in want} != want or counts["fused_unet_t4"] or not np.isfinite(
+            [probe_bf["copy_vs_teacher_mse"], probe_bf["student_vs_teacher_mse"]]).all():
+        fail(f"distill: bf16 probe launches {counts} (expected {want}) or non-finite output")
+    out["probe_bf16"] = dict(probe_bf, launches=counts, wall_s=bf_s)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  distill phase {out['phase_s']:.1f} s")
+    report["distill"] = out
+    return runs["on"]["launches"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_cli(label, cfg, tmp, ranks=1, timeout=600):
+    """`python -m dhg_torch.train --config=<cfg as JSON>` in `ranks`
+    processes on the card (rank r gets distributed.process_id r); returns
+    rank 0's run dir and metrics rows."""
+    from pathlib import Path
+
+    cfg = json.loads(json.dumps(cfg))
+    cfg["experiment"]["work_dir"] = os.path.join(tmp, label)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = []
+    try:
+        for r in range(ranks):
+            if "distributed" in cfg["training_args"]:
+                cfg["training_args"]["distributed"]["process_id"] = r
+            path = os.path.join(tmp, f"{label}_rank{r}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dhg_torch.train", f"--config={path}"], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{label}: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    runs = [m.parent for m in Path(tmp, label).rglob("metrics.jsonl")]
+    if len(runs) != 1 or len(list(Path(tmp, label).rglob("run.log"))) != 1:
+        fail(f"{label}: expected one run dir (rank 0's), found {runs}")
+    rows = [json.loads(x) for x in (runs[0] / "metrics.jsonl").read_text().splitlines()]
+    return runs[0], rows
+
+
+def multiprocess_phase(tmp, report):
+    """Phase 7f: the train CLI under torch.distributed, f32, batch 96, T 480,
+    both train flags on, MP_STEPS steps each. (a) one process in an NCCL
+    group against the run without a group: losses bit for bit. (b) two
+    processes sharing the card under gloo (NCCL refuses two ranks on one
+    device), data_parallel 2, then model_parallel 2: losses within 1e-4
+    relative of (a)'s run without a group, one run dir. (c) the
+    model-parallel run's model_final loads strictly into a one-device
+    model."""
+    from pathlib import Path
+
+    from dhg_torch.models.denoiser import DiffusionModel
+    from dhg_torch.tools.profile_train import best_config
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    base = best_config(tmp, MP_STEPS, TRAIN_B)
+    base["training_args"].update(compute_dtype="float32", log_freq=1, save_freq=1000,
+                                 mesh={"data_parallel": None, "model_parallel": 1})
+    set_train_flags(True)
+    try:
+        results = {}
+        for label, ranks, extra in (
+                ("solo", 1, {}),
+                ("nccl1", 1, {"distributed": {"num_processes": 1, "backend": "nccl"}}),
+                ("gloo_dp2", 2, {"distributed": {"num_processes": 2, "backend": "gloo"}}),
+                ("gloo_tp2", 2, {"distributed": {"num_processes": 2, "backend": "gloo"},
+                                 "mesh": {"data_parallel": None, "model_parallel": 2}})):
+            cfg = json.loads(json.dumps(base))
+            cfg["training_args"].update(json.loads(json.dumps(extra)))
+            if "distributed" in extra:
+                cfg["training_args"]["distributed"]["coordinator_address"] = \
+                    f"localhost:{free_port()}"
+            t0 = time.perf_counter()
+            run, rows = train_cli(label, cfg, tmp, ranks)
+            wall = time.perf_counter() - t0
+            losses = [[r["loss"], r["score"], r["pen"]] for r in rows]
+            results[label] = dict(run=str(run), losses=losses, wall_s=wall)
+            log(f"  {label}: {ranks} process(es), {wall:.1f} s, steps {[r['step'] for r in rows]}, "
+                f"losses {[round(l[0], 6) for l in losses]}")
+    finally:
+        set_train_flags(False)
+    solo = np.asarray(results["solo"]["losses"])
+    if solo.shape != (MP_STEPS, 3) or not np.isfinite(solo).all():
+        fail(f"multiprocess: bad solo losses {solo.tolist()}")
+    if results["nccl1"]["losses"] != results["solo"]["losses"]:
+        fail("multiprocess: the NCCL world-size-1 run differs from the run without a group")
+    log("  (a) NCCL world size 1 == no process group, bit for bit")
+    for label in ("gloo_dp2", "gloo_tp2"):
+        got = np.asarray(results[label]["losses"])
+        rel = float(np.max(np.abs(got - solo) / np.abs(solo)))
+        results[label]["max_rel_diff"] = rel
+        mesh = "(2, 1)" if label == "gloo_dp2" else "(1, 2)"
+        run_log = (Path(results[label]["run"]) / "run.log").read_text()
+        if f"mesh (data, model) {mesh}" not in run_log:
+            fail(f"multiprocess: {label}'s run.log does not show the mesh {mesh}")
+        log(f"  (b) {label}: mesh {mesh}; max relative loss diff against the solo run {rel:.3g}")
+        if got.shape != solo.shape or rel > 1e-4:
+            fail(f"multiprocess: {label} losses differ from the solo run by {rel:.3g} relative")
+    tp_final = Path(results["gloo_tp2"]["run"]) / "model_final"
+    model = DiffusionModel.load(tp_final, device="cuda")  # strict load_state_dict
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  (c) the model_parallel run's model_final loads strictly: {n:,} parameters")
+    out.update(results, tp_checkpoint_params=n, phase_s=time.perf_counter() - t_phase)
+    log(f"  multiprocess phase {out['phase_s']:.1f} s")
+    report["multiprocess"] = out
+
+
 def train_rate_phase(report):
     from dhg_torch.config import DLConfig
     from dhg_torch.tools.profile_train import best_config
@@ -1407,6 +1699,11 @@ def main() -> None:
         serve_phase(run, tmp, report)
         log("== iam: a generated IAM tree -> caches -> train -> average -> eval, metrics")
         iam_phase(report, tmp)
+        log("== distill: dhg_torch.distill 60 -> 30 from the train run, flags off and on; "
+            "infer, probe_distill, the bf16 probe")
+        distill_phase(run, tmp, report)
+        log("== multiprocess: the train CLI under torch.distributed (NCCL x 1, gloo DP 2, TP 2)")
+        multiprocess_phase(tmp, report)
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
 

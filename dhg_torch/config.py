@@ -145,8 +145,8 @@ def fit_config(config_dir: PathLike | str | None = None, **kwargs) -> dict:
         path = Path(kwargs.pop("config"))
         if not path.exists():
             path = cfg_dir / path
-        with open(path) as f:
-            base = merge_configs(base, yaml.safe_load(f))
+        # JSON first, as DLConfig.load: YAML 1.1 reads JSON's 1e-05 as a string.
+        base = merge_configs(base, DLConfig.load(path).to_dict())
     return update_config(base, kwargs)
 
 

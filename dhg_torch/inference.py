@@ -106,6 +106,7 @@ def generate(
     noises: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
     sample_seeds: list[int] | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Sample stroke sequences [B, seq_len, 3] (float32) for tokenized prompts.
 
@@ -119,6 +120,12 @@ def generate(
     `sample_seeds`, one int per row: each row draws its own stream
     (per_sample_noise_streams), so its strokes do not depend on the rows
     it is batched with. sample_seeds excludes the other two.
+    mesh: a parallel.mesh.Mesh; the batch is split over its data group and
+    the rows gathered back in order, so every rank returns what one process
+    returns. Every rank draws the whole batch's x_T and noise (pass a
+    generator seeded alike everywhere) and keeps its rows. The model holds
+    whole weights on every rank: the sampler's kernels need whole heads,
+    so the sampler's mesh takes the data axis only.
     """
     dev = resolve_device(device)
     _check_model_device(model, dev)
@@ -142,6 +149,10 @@ def generate(
         if len(sample_seeds) != text.shape[0]:
             raise ValueError(f"{len(sample_seeds)} sample_seeds for a batch of {text.shape[0]}")
         x_init, noises = per_sample_noise_streams(sample_seeds, beta_set.shape[0], seq_len, dev)
+    if mesh is not None and mesh.data_group is not None:
+        return _generate_split(mesh, model, text, style, generator, seq_len, diffusion_mode,
+                               guidance_scale, n_steps, schedule, temperature, x_init, noises,
+                               beta_set.shape[0], dev)
 
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -149,6 +160,35 @@ def generate(
     with torch.inference_mode():
         return _sample(model, text, style, generator, seq_len, beta_set, diffusion_mode,
                        guidance_scale, temperature, x_init, noises, dev)
+
+
+def _generate_split(mesh, model, text, style, generator, seq_len, mode, guidance_scale, n_steps,
+                    schedule, temperature, x_init, noises, n, dev):
+    """generate over the mesh's data group: this rank's rows of the whole
+    batch's draws, then an all-gather of the rows in order."""
+    from dhg_torch.parallel.sharding import all_gather_dim, is_sharded
+
+    if is_sharded(model):
+        raise ValueError("the sampler's mesh takes the data axis only: give generate a model "
+                         "with whole weights")
+    b = text.shape[0]
+    if b < mesh.data_size:
+        raise ValueError(f"a batch of {b} does not split over {mesh.data_size} data ranks")
+    if x_init is None:
+        # The draws diffusion_sample makes from `generator`, in its order:
+        # x_T, then one normal a step unless the mode is DDIM.
+        shape = (b, seq_len, 2)
+        x_init = torch.randn(shape, generator=generator, device=dev)
+        noises = (torch.zeros((n,) + shape, device=dev) if mode == "ddim" else torch.stack(
+            [torch.randn(shape, generator=generator, device=dev) for _ in range(n)]))
+    sizes = [len(c) for c in torch.arange(b).tensor_split(mesh.data_size)]
+    lo = sum(sizes[:mesh.data_index])
+    rows = slice(lo, lo + sizes[mesh.data_index])
+    local = generate(model, text[rows], style[rows], seq_len=seq_len, diffusion_mode=mode,
+                     guidance_scale=guidance_scale, n_steps=n_steps, schedule=schedule,
+                     temperature=temperature, x_init=x_init[rows], noises=noises[:, rows],
+                     device=dev)
+    return all_gather_dim(local, 0, mesh.data_group, sizes)
 
 
 def _sample(model, text, style, generator, seq_len, beta_set, mode, guidance_scale,

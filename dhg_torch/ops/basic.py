@@ -6,13 +6,21 @@ weights cast to bf16, one bf16 product with f32 accumulation, rounded once,
 then `+ bias` in bf16 — two roundings, so no fused addmm. Parameters stay
 float32; the bf16 copies are cached per weight version when no gradient is
 being recorded, so the sampler casts each weight once, not once per step.
+
+FFN is one seam of tensor parallelism (parallel/sharding.py): with a model
+group its fc1 holds a slice of the hidden, fc2 the matching input columns.
+Without one it is the plain module, op for op.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dhg_torch.parallel.sharding import copy_to, reduce_from
 
 
 class CastCache:
@@ -90,21 +98,56 @@ class AffineTransformLayer(nn.Module):
 
 class FFN(nn.Sequential):
     """SiLU -> Linear(hidden) -> SiLU -> Linear(out); Sequential indices .1/.3
-    hold the weights, as in the reference's ff_network."""
+    hold the weights, as in the reference's ff_network. With `tp_group` set
+    (parallel/sharding.py::shard_model) each rank holds a slice of the
+    hidden: fc2's partial products are summed over the group, then fc2's
+    bias added once."""
+
+    tp_group = None
 
     def __init__(self, d_in: int, hidden: int, out: int, dtype=None):
         super().__init__(nn.SiLU(), Linear(d_in, hidden), nn.SiLU(), Linear(hidden, out))
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self[1](F.silu(x), self.dtype)
-        return self[3](F.silu(x), self.dtype)
+        g = self.tp_group
+        if g is None:
+            x = self[1](F.silu(x), self.dtype)
+            return self[3](F.silu(x), self.dtype)
+        h = F.silu(self[1](F.silu(copy_to(x, g)), self.dtype))
+        dt = self.dtype or h.dtype
+        w, b = self[3].cast(dt)
+        return reduce_from(torch.matmul(h.to(dt), w.t()), g) + b
+
+
+@contextmanager
+def dropout_rows(model: nn.Module, total: int, rows: slice):
+    """Inside, each live dropout of `model` draws its mask for a batch of
+    `total` rows and keeps `rows`, the rows of this forward: a data-parallel
+    rank then drops what a one-process run drops for the same rows, and the
+    ranks of a model group drop alike, when the caller seeds the generator
+    alike."""
+    drops = [m for m in model.modules() if isinstance(m, nn.Dropout)]
+    for m in drops:
+        m.batch_rows = (total, rows)
+    try:
+        yield
+    finally:
+        for m in drops:
+            del m.batch_rows
 
 
 def dropout(drop: nn.Dropout, x: torch.Tensor) -> torch.Tensor:
     """drop(x) under train() with p > 0, else x without the module call: the
-    sampler runs these layers thousands of times a call, in eval."""
-    return drop(x) if drop.training and drop.p else x
+    sampler runs these layers thousands of times a call, in eval. Under
+    dropout_rows the mask comes from the whole batch's draw."""
+    if not (drop.training and drop.p):
+        return x
+    rows = getattr(drop, "batch_rows", None)
+    if rows is None:
+        return drop(x)
+    mask = drop(torch.ones((rows[0],) + x.shape[1:], device=x.device))[rows[1]]
+    return (x * mask).to(x.dtype)
 
 
 def create_padding_mask(tokens: torch.Tensor) -> torch.Tensor:

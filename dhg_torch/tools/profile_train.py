@@ -3,7 +3,11 @@ steps of the canonical bf16 model at batch 96, with the train-path kernels
 and with the plain-op path.
 
     python -m dhg_torch.tools.profile_train [--steps 3] [--batch 96]
-        [--out report.json] [--trace-dir DIR]
+        [--distill] [--out report.json] [--trace-dir DIR]
+
+--distill profiles distillation steps instead (dhg_torch.distill.Distiller
+60 -> 30 in float32, as the distill CLI runs, from a teacher with the
+same random weights).
 
 For each path it prints the wall time of the profiled steps, the summed
 device (CUDA kernel) time, the device idle share (1 - device time / wall
@@ -47,26 +51,51 @@ def best_config(work_dir, steps: int, batch: int = 96) -> dict:
     }
 
 
-def profile_path(kernels: bool, steps: int, batch: int, trace_dir: str | None) -> dict:
-    from dhg_torch.config import DLConfig
+def train_step_fn(cfg):
+    """step(c): Trainer.train_step on step c's draws."""
     from dhg_torch.train import Trainer
+
+    trainer = Trainer(cfg, device="cuda")
+    return lambda c: trainer.train_step(trainer.draw(c))
+
+
+def distill_step_fn(cfg):
+    """step(c): one Distiller step (60 -> 30, float32 as the distill CLI)."""
+    from dhg_torch.config import DLConfig, update_config
+    from dhg_torch.data.pipeline import DeviceDataset
+    from dhg_torch.distill import Distiller
+    from dhg_torch.models.denoiser import DiffusionModel
+    from dhg_torch.train import load_cache
+
+    cfg = DLConfig(update_config(cfg.to_dict(), {"training_args.compute_dtype": "float32"}))
+    teacher = DiffusionModel.from_config(cfg.training_args, device="cuda").state_dict()
+    d = Distiller(cfg, teacher, device="cuda")
+    data = DeviceDataset.from_cache(load_cache(cfg, "train", "cuda"), "cuda")
+    gen = torch.Generator("cuda").manual_seed(99)
+    return lambda c: d.step(data.arrays, d.draw(gen, data.size, data.strokes.shape[1]))
+
+
+def profile_path(kernels: bool, steps: int, batch: int, trace_dir: str | None,
+                 distill: bool = False) -> dict:
+    from dhg_torch.config import DLConfig
 
     for name in FLAGS:
         os.environ[name] = "1" if kernels else "0"
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(DLConfig(best_config(tmp, steps, batch)), device="cuda")
-        trainer.train_step(trainer.draw(1))  # warm-up: kernel build, allocator, cuBLAS
+        cfg = DLConfig(best_config(tmp, steps, batch))
+        step = (distill_step_fn if distill else train_step_fn)(cfg)
+        step(1)  # warm-up: kernel build, allocator, cuBLAS
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for c in range(2, steps + 2):
-                trainer.train_step(trainer.draw(c))
+                step(c)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    label = "kernels" if kernels else "plain"
+    label = ("distill " if distill else "") + ("kernels" if kernels else "plain")
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, f"train_{label}.json"))
+        prof.export_chrome_trace(os.path.join(trace_dir, f"train_{label.replace(' ', '_')}.json"))
     evts = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     evts.sort(key=_device_time_us, reverse=True)
     device_us = sum(_device_time_us(e) for e in evts)
@@ -83,12 +112,13 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=96)
     ap.add_argument("--out")
     ap.add_argument("--trace-dir")
+    ap.add_argument("--distill", action="store_true", help="profile distillation steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA card")
     results = []
     for kernels in (False, True):
-        r = profile_path(kernels, args.steps, args.batch, args.trace_dir)
+        r = profile_path(kernels, args.steps, args.batch, args.trace_dir, args.distill)
         results.append(r)
         print(f"{r['path']}: {r['steps']} steps at batch {r['batch']}: wall {r['wall_ms']:.1f} ms, "
               f"device {r['device_ms']:.1f} ms, idle share {r['idle_share']:.3f}, "

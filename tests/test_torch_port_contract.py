@@ -14,6 +14,9 @@ from dhg_torch import resolve_device
 from dhg_torch.inference import generate, infer, sample_lines, style_from_image
 from dhg_torch.models.denoiser import DiffusionModel
 from dhg_torch.config import DLConfig
+from dhg_torch.distill import Distiller
+from dhg_torch.distill import main as distill_main
+from dhg_torch.tools.probe_distill import main as probe_main
 from dhg_torch.train import Trainer, main
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -73,6 +76,16 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(cfg)
     assert not (tmp_path / "runs").exists()  # refused before it made a run dir
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Distiller(cfg, model.state_dict())
+    (tmp_path / "run").mkdir()
+    cfg.dump(tmp_path / "run" / "config.yml")
+    torch.save({"meta": {}, "state_dict": model.state_dict()}, tmp_path / "run" / "model_final")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distill_main([f"--experiment_path={tmp_path / 'run'}", "--steps=1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        probe_main([f"--teacher={tmp_path / 'run'}", f"--student={tmp_path / 'run'}"])
+    assert not (tmp_path / "runs").exists()
 
 
 def test_cpu_path_runs_when_asked():

@@ -103,7 +103,8 @@ def test_unported_options_refuse(tmp_path):
                               "warmup_steps": 10}}
     mesh = json.loads(json.dumps(base))
     mesh["training_args"]["mesh"] = {"model_parallel": 2}
-    with pytest.raises(NotImplementedError, match="model_parallel"):
+    # model_parallel is ported; it needs a process group of as many ranks.
+    with pytest.raises(ValueError, match="model_parallel=2 needs as many processes"):
         tr.Trainer(cf.DLConfig(mesh), device="cpu")
     # dataset "iam" (the default) is ported: an empty train split raises, an
     # empty validation split reads as None, as in dhg.

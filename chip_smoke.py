@@ -125,6 +125,32 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  within 1e-4 relative of the run without a group, one run
                  dir; the model_parallel run's model_final loads strictly
                  into a one-device model
+  7g. opt-in samplers and tools — the canonical model, random weights
+                 (seed 0), bf16, seq_len 392: generate(hoist="full")
+                 against the compact hoist on the same draws at batch 96
+                 and 256 (bit for bit, else within 1e-3 stroke MSE), launch
+                 counts 60 bottleneck + 120 encoder-layer at 96 (60 + 0 at
+                 256; with DHG_FUSED_T4=1, 60 T4 and no other), peak memory
+                 and ms of both (compact, full, full, compact); encoder
+                 reuse at batch 96: k = 1 equal to the compact sampler (and
+                 the reuse sampler itself at reuse_every 1 bit for bit or
+                 within 1e-3), k = 2 and 3 with 60 bottleneck and
+                 2 ceil(60 / k) encoder-layer launches (no T4 launch with
+                 the flag: dhg fuses T4 in denoise only), stroke MSE
+                 against k = 1, ms of each k; Jacobi DDIM at batch 1 in f32:
+                 60 sweeps within 1e-3 stroke MSE of the sequential DDIM on
+                 the same x_T, no sampler-kernel launch (the full forward's
+                 per-row sigma closes their gate), peak memory, then
+                 tools/eval_parallel_sampler.py at its defaults in bf16 (0
+                 launches asserted); a 4-step train CLI run (the training
+                 cell, both train flags) with profile_start 2 and
+                 profile_steps 1: one Chrome trace holding steps 2-3 that
+                 names attention_mma_kernel and conv_block_kernel; then
+                 eval_fewer_steps and eval_encoder_reuse on the train run
+                 (f32), sweep, bench_hoist and profile_stages (batch 96:
+                 each stage's kernels) at small arguments, each report's
+                 JSON parsed and its keys checked, and plot_run's PNG of
+                 the profile run
   8. train rate — train_steps_per_sec_batch96 with both kernels and with
                  both flags off, in turns (off, on, on, off): CUDA events
                  over 10 steps after one warm-up step
@@ -184,6 +210,23 @@ TRAIN_B, TRAIN_STEPS = 96, 20  # T = 480 (tools/profile_train.py::best_config)
 DISTILL_STEPS = 20  # phase 7e: 60 -> 30 from the train run's model_final
 MP_STEPS = 5  # phase 7f: steps of each multi-process train run
 IAM_FORMS, IAM_SEED = (192, 48), 7  # generated train / validation forms
+SAMPLER_KERNELS = ("fused_bottleneck", "fused_encoder_layer", "fused_unet_t4")
+# Phase 7g: the keys of each tool's report (dhg's, plus "backend"; profile_stages
+# also "kernels"), as dhg/tools/<tool>.py writes them.
+TOOL_KEYS = {
+    "eval_fewer_steps": {"batch", "seq_len", "mode", "backend", "ms_per_call_60", "rows"},
+    "eval_fewer_steps_row": {"n_steps", "stroke_mse", "stroke_max_abs", "pen_flip_rate",
+                             "ms_per_call", "lines_per_sec", "speedup_vs_60"},
+    "eval_encoder_reuse": {"batch", "seq_len", "mode", "backend", "rows"},
+    "eval_encoder_reuse_row": {"reuse_every", "stroke_mse", "stroke_max_abs", "pen_flip_rate",
+                               "under_1e-3_bar"},
+    "sweep": {"batch", "n_steps", "guidance", "seq_len", "time_s", "denoise_steps_per_sec",
+              "ms_per_line", "backend"},
+    "bench_hoist": {"batch", "hoist", "ms_per_call", "ms_per_step", "denoise_steps_per_sec",
+                    "backend"},
+    "profile_stages": {"batch", "seq_len", "backend", "ms_per_step", "stage_sum_ms", "glue_ms",
+                       "pct_of_full", "kernels"},
+}
 # The training forward's attention calls at T = 480, L = 50: (label, H, Tq,
 # Tk, D, masked, launches a step).
 TRAIN_ATTENTION = [("text-style cross", 8, TEXT_LEN, 70, 48, False, 1),
@@ -1578,6 +1621,266 @@ def multiprocess_phase(tmp, report):
     report["multiprocess"] = out
 
 
+def event_ms(fn):
+    """(fn(), milliseconds) from CUDA events around one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def stroke_mse(a, b) -> float:
+    return float(((a[..., :2].float() - b[..., :2].float()) ** 2).mean())
+
+
+def counted_run(fn):
+    """(fn(), the sampler kernels' launches during it)."""
+    from dhg_torch.kernels import fused_bottleneck as fk
+
+    fk.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, tuple(fk.launches[k] for k in SAMPLER_KERNELS)
+
+
+def tool_json(main, argv):
+    """A tool's main(argv): its stdout parsed as JSON (one object, or one per
+    line) and what main returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    text = buf.getvalue()
+    log("    " + text.strip().replace("\n", "\n    "))
+    try:
+        parsed = json.loads(text)
+    except json.JSONDecodeError:
+        parsed = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    return parsed, ret, text
+
+
+def optin_phase(run, tmp, report):
+    """Phase 7g: the opt-in samplers and the seven tools (see the module
+    docstring)."""
+    import math
+    from pathlib import Path
+
+    from dhg_torch.core.parallel_sampling import parallel_ddim_sample
+    from dhg_torch.data.images import read_png
+    from dhg_torch.inference import _sample, beta_table, generate
+    from dhg_torch.models.denoiser import DiffusionModel
+    from dhg_torch.tools import (bench_hoist, eval_encoder_reuse, eval_fewer_steps,
+                                 eval_parallel_sampler, plot_run, profile_stages, sweep)
+    from dhg_torch.tools.profile_train import best_config
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    canonical = {"channels": 128, "att_layers_num": 2}
+    model = DiffusionModel.from_config(canonical, dtype=torch.bfloat16, device="cuda", seed=0)
+
+    def sampler(mdl, text, style, seed, **kw):
+        return lambda: generate(mdl, text, style, torch.Generator(device="cuda").manual_seed(seed),
+                                seq_len=SEQ_LEN, device="cuda", **kw)
+
+    def check_launches(label, got, want):
+        log(f"  {label}: launches {dict(zip(SAMPLER_KERNELS, got))}")
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want}")
+
+    # -- the full hoist against the compact one (bf16) ---------------------------
+    hoist = {}
+    for batch in (96, 256):
+        _, text, style = make_inputs(batch, seed=40 + batch)
+        compact, full = sampler(model, text, style, batch), sampler(model, text, style, batch,
+                                                                    hoist="full")
+        want = (60, 120 if batch <= 128 else 0, 0)
+        peaks = {}
+        for name, fn in (("compact", compact), ("full", full)):
+            torch.cuda.reset_peak_memory_stats()
+            res, got = counted_run(fn)
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+            check_launches(f"{name} hoist B={batch}", got, want)
+            if name == "compact":
+                ref = res
+        equal = torch.equal(res, ref)
+        diff, mse = float((res - ref).abs().max()), stroke_mse(res, ref)
+        log(f"  full hoist B={batch} against compact: bit for bit {equal} (max |diff| {diff:.3g}, "
+            f"stroke MSE {mse:.3g}); peak memory compact {peaks['compact']:.3f} GiB, "
+            f"full {peaks['full']:.3f} GiB")
+        if not equal and not mse <= 1e-3:
+            fail(f"full hoist B={batch}: stroke MSE {mse} against compact")
+        ms = {"compact": [], "full": []}
+        for name in ("compact", "full", "full", "compact"):
+            ms[name].append(event_ms(compact if name == "compact" else full)[1])
+        log(f"  B={batch} ms per 60-step call (compact, full, full, compact): "
+            f"{ms['compact'][0]:.1f}, {ms['full'][0]:.1f}, {ms['full'][1]:.1f}, "
+            f"{ms['compact'][1]:.1f}")
+        hoist[str(batch)] = {"bit_for_bit": equal, "max_abs_diff": diff, "stroke_mse": mse,
+                             "peak_gib": peaks, "ms": ms, "launches": want}
+        if batch == 96:
+            with env_flag("DHG_FUSED_T4", "1"):
+                _, got = counted_run(full)
+            check_launches("full hoist B=96, DHG_FUSED_T4=1", got, (0, 0, 60))
+            hoist[str(batch)]["t4_launches"] = got
+        del text, style, res, ref
+        torch.cuda.empty_cache()
+    out["hoist"] = hoist
+
+    # -- encoder reuse (bf16, B = 96) ---------------------------------------------
+    _, text, style = make_inputs(96, seed=50)
+    exact, got = counted_run(sampler(model, text, style, 5))
+    k1, got1 = counted_run(sampler(model, text, style, 5, encoder_reuse=1))
+    check_launches("encoder_reuse=1 B=96", got1, (60, 120, 0))
+    if not torch.equal(k1, exact):
+        fail("encoder_reuse=1 differs from the compact sampler")
+    # The reuse sampler itself at reuse_every = 1, on the full hoist.
+    with torch.inference_mode():
+        direct, gotd = counted_run(lambda: _sample(
+            model, text, style, torch.Generator(device="cuda").manual_seed(5), SEQ_LEN,
+            beta_table(N_STEPS, "strided", "cuda"), "new", None, 1.0, None, None,
+            torch.device("cuda"), encoder_reuse=1))
+    check_launches("reuse sampler, reuse_every=1, B=96", gotd, (60, 120, 0))
+    d_equal, d_mse = torch.equal(direct, exact), stroke_mse(direct, exact)
+    log(f"  reuse sampler at reuse_every=1 against compact: bit for bit {d_equal} "
+        f"(stroke MSE {d_mse:.3g})")
+    if not d_equal and not d_mse <= 1e-3:
+        fail(f"reuse sampler at reuse_every=1: stroke MSE {d_mse} against compact")
+    reuse = {"k1_equal": True, "direct_k1_bit_for_bit": d_equal, "direct_k1_mse": d_mse}
+    fns = {k: sampler(model, text, style, 5, encoder_reuse=k) for k in (1, 2, 3)}
+    for k in (2, 3):
+        res, got = counted_run(fns[k])
+        check_launches(f"encoder_reuse={k} B=96", got, (60, 2 * math.ceil(60 / k), 0))
+        mse = stroke_mse(res, exact)
+        log(f"  encoder_reuse={k}: stroke MSE {mse:.4g} against k = 1; finite "
+            f"{bool(torch.isfinite(res).all())}")
+        reuse[f"k{k}"] = {"launches": got, "stroke_mse_vs_k1": mse}
+    with env_flag("DHG_FUSED_T4", "1"):
+        _, got = counted_run(fns[2])
+    check_launches("encoder_reuse=2 B=96, DHG_FUSED_T4=1 (no T4 under reuse)", got, (60, 60, 0))
+    order = (1, 2, 3, 3, 2, 1)
+    ms = {k: [] for k in (1, 2, 3)}
+    for k in order:
+        ms[k].append(event_ms(fns[k])[1])
+    log("  B=96 ms per call (k = 1, 2, 3, 3, 2, 1): "
+        + ", ".join(f"{ms[k][i]:.1f}" for k, i in zip(order, (0, 0, 0, 1, 1, 1))))
+    reuse["ms"] = {str(k): v for k, v in ms.items()}
+    out["reuse"] = reuse
+    del text, style, exact, k1, direct, res
+    torch.cuda.empty_cache()
+
+    # -- Jacobi parallel DDIM (B = 1) ---------------------------------------------
+    model32 = DiffusionModel.from_config(canonical, device="cuda", seed=0)
+    _, text, style = make_inputs(1, seed=61)
+    seq, seq_ms = event_ms(sampler(model32, text, style, 7, diffusion_mode="ddim"))
+
+    def denoise_any(x, sigma):
+        reps = x.shape[0]
+        return model32(x, text.repeat(reps, 1), sigma, style.repeat(reps, 1, 1))
+
+    torch.cuda.reset_peak_memory_stats()
+    (par, ests), got = counted_run(lambda: parallel_ddim_sample(
+        denoise_any, 1, SEQ_LEN, sweeps=60, generator=torch.Generator(device="cuda").manual_seed(7),
+        return_all_sweeps=True, device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("Jacobi DDIM f32, B=1, 60 sweeps (the gate is closed)", got, (0, 0, 0))
+    mses = {k: stroke_mse(ests[k - 1], seq) for k in (4, 8, 12, 16, 30, 60)}
+    _, par_ms = event_ms(lambda: parallel_ddim_sample(
+        denoise_any, 1, SEQ_LEN, sweeps=60, generator=torch.Generator(device="cuda").manual_seed(7),
+        device="cuda"))
+    _, seq_ms = event_ms(sampler(model32, text, style, 7, diffusion_mode="ddim"))
+    log(f"  Jacobi DDIM f32 B=1 T={SEQ_LEN}: stroke MSE against sequential DDIM by sweeps "
+        + ", ".join(f"{k}: {v:.3g}" for k, v in mses.items())
+        + f"; 60 sweeps {par_ms:.1f} ms, sequential {seq_ms:.1f} ms; peak {peak:.3f} GiB")
+    if not mses[60] <= 1e-3:
+        fail(f"Jacobi DDIM: 60 sweeps {mses[60]} from the sequential DDIM")
+    log("  tools/eval_parallel_sampler.py at its defaults (bf16, random weights):")
+    table, ret, _ = tool_json(eval_parallel_sampler.main, ["--device=cuda"])
+    check_launches("eval_parallel_sampler's parallel runs", tuple(
+        ret["sampler_kernel_launches"][k] for k in SAMPLER_KERNELS), (0, 0, 0))
+    out["jacobi"] = {"f32_stroke_mse_by_sweeps": mses, "f32_60_sweeps_ms": par_ms,
+                     "f32_sequential_ms": seq_ms, "peak_gib": peak, "launches": got,
+                     "bf16_table": ret}
+    del model32, par, ests, seq
+    torch.cuda.empty_cache()
+
+    # -- training's profile_dir ---------------------------------------------------
+    cfg = best_config(tmp, 4, TRAIN_B)
+    trace_dir = os.path.join(tmp, "profile_trace")
+    cfg["training_args"].update(profile_dir=trace_dir, profile_start=2, profile_steps=1,
+                                log_freq=2, save_freq=100)
+    set_train_flags(True)
+    t0 = time.perf_counter()
+    prof_run, _ = train_cli("profile", cfg, tmp)
+    set_train_flags(False)
+    traces = sorted(Path(trace_dir).iterdir())
+    if [p.name for p in traces] != ["train_steps_2-3.json"]:
+        fail(f"profile_dir: expected train_steps_2-3.json, found {[p.name for p in traces]}")
+    names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    spans = sorted(n for n in names if n.startswith("train_step "))
+    kernels = {k: any(k in n for n in names) for k in ("attention_mma_kernel", "conv_block_kernel")}
+    logged = "Profiler trace written to" in (prof_run / "run.log").read_text()
+    log(f"  profile_dir: {traces[0].name} ({traces[0].stat().st_size / 2**20:.1f} MiB) in "
+        f"{time.perf_counter() - t0:.1f} s; spans {spans}; kernels named {kernels}; "
+        f"run.log line {logged}")
+    if spans != ["train_step 2", "train_step 3"] or not all(kernels.values()) or not logged:
+        fail("profile_dir: the trace does not hold steps 2-3 with both train kernels")
+    out["profile_dir"] = {"trace_mib": traces[0].stat().st_size / 2**20, "spans": spans,
+                          "kernels": kernels}
+
+    # -- the tools at small arguments ---------------------------------------------
+    tools = {}
+    log("  tools/eval_fewer_steps.py on the train run (f32):")
+    rep, ret, _ = tool_json(eval_fewer_steps.main, ["--device=cuda", f"--experiment_path={run}",
+                                                    "--batch=8", "--steps=30,15",
+                                                    "--diffusion_mode=ddim"])
+    if rep != ret or set(rep) != TOOL_KEYS["eval_fewer_steps"] or any(
+            set(r) != TOOL_KEYS["eval_fewer_steps_row"] for r in rep["rows"]):
+        fail("eval_fewer_steps: bad report")
+    tools["eval_fewer_steps"] = rep
+    log("  tools/eval_encoder_reuse.py on the train run (f32):")
+    rep, ret, _ = tool_json(eval_encoder_reuse.main, ["--device=cuda", f"--experiment_path={run}",
+                                                      "--batch=8", "--reuse=2,3"])
+    if rep != ret or set(rep) != TOOL_KEYS["eval_encoder_reuse"] or any(
+            set(r) != TOOL_KEYS["eval_encoder_reuse_row"] for r in rep["rows"]):
+        fail("eval_encoder_reuse: bad report")
+    tools["eval_encoder_reuse"] = rep
+    log("  tools/sweep.py:")
+    rows, ret, _ = tool_json(sweep.main, ["--device=cuda", "--batches=16,96", "--steps=20,60"])
+    if rows != ret or len(rows) != 4 or any(set(r) != TOOL_KEYS["sweep"] for r in rows):
+        fail("sweep: bad rows")
+    tools["sweep"] = rows
+    log("  tools/bench_hoist.py:")
+    rows, ret, text_out = tool_json(bench_hoist.main, ["--device=cuda", "--batches=96"])
+    if rows != ret or len(rows) != 2 or any(set(r) != TOOL_KEYS["bench_hoist"] for r in rows) \
+            or "BEST: {" not in text_out:
+        fail("bench_hoist: bad rows")
+    tools["bench_hoist"] = rows
+    log("  tools/profile_stages.py:")
+    rep, ret, _ = tool_json(profile_stages.main, ["--device=cuda", "--batch=96"])
+    layer = {"fused_encoder_layer": 1}
+    want_kernels = {"full": {"fused_bottleneck": 1, "fused_encoder_layer": 2}, "enc1": {},
+                    "enc2_enc3": layer, "enc4_enc5": layer, "att_stack": {"fused_bottleneck": 1},
+                    "decoder": {}}
+    if rep != ret or set(rep) != TOOL_KEYS["profile_stages"] or rep["kernels"] != want_kernels:
+        fail(f"profile_stages: bad report (kernels {rep.get('kernels')}, want {want_kernels})")
+    tools["profile_stages"] = rep
+    png = os.path.join(tmp, "loss_curves.png")
+    _, ret, _ = tool_json(plot_run.main, ["--experiment_path", str(prof_run), "--output", png])
+    shape = read_png(png).shape
+    log(f"  tools/plot_run.py on the profile run: {png} {shape}")
+    if shape != (600, 1080, 3):
+        fail("plot_run: bad PNG")
+    out["tools"] = tools
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  opt-in samplers and tools phase {out['phase_s']:.1f} s")
+    report["optin"] = out
+
+
 def train_rate_phase(report):
     from dhg_torch.config import DLConfig
     from dhg_torch.tools.profile_train import best_config
@@ -1704,6 +2007,9 @@ def main() -> None:
         distill_phase(run, tmp, report)
         log("== multiprocess: the train CLI under torch.distributed (NCCL x 1, gloo DP 2, TP 2)")
         multiprocess_phase(tmp, report)
+        log("== opt-in samplers and tools: full hoist, encoder reuse, Jacobi DDIM, training's "
+            "profile_dir, dhg_torch/tools")
+        optin_phase(run, tmp, report)
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
 

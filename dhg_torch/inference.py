@@ -4,8 +4,8 @@
         --experiment_path=<run dir> [--output=result] [--format=png|svg] \
         [--device=cpu]
 
-`generate` / `sample_lines` follow dhg's default "compact" hoist
-(_sample_jit):
+`generate` / `sample_lines` follow dhg's _sample_jit, by default in its
+"compact" hoist:
   * sigma embeddings and every FiLM coefficient are computed at batch 1 for
     all noise levels before the loop;
   * the text-style encoder's `pre` runs once and its `tail` once per level,
@@ -14,6 +14,8 @@
     runs the U-Net; the x carry and the heads are float32;
   * guidance runs a second U-Net pass against the null text, which keeps
     token 0 open (all-padding text would mask every key).
+hoist="full" computes every level's K/V before the loop instead, and
+encoder_reuse=k runs the encoder half every k-th step on the full hoist.
 The loop runs under torch.inference_mode().
 
 `infer` is dhg's front end: the run dir's checkpoint (model_final, then
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from dhg_torch import resolve_device
-from dhg_torch.core.sampling import diffusion_sample, infer_seq_len, per_sample_noise_streams
+from dhg_torch.core.sampling import (diffusion_sample, diffusion_sample_encoder_reuse,
+                                     infer_seq_len, per_sample_noise_streams)
 from dhg_torch.core.schedule import N_STEPS, get_alpha_set, get_beta_set
 from dhg_torch.data.tokenizer import Tokenizer
 from dhg_torch.ops.basic import create_padding_mask
@@ -107,6 +110,8 @@ def generate(
     device: str | torch.device = "cuda",
     sample_seeds: list[int] | None = None,
     mesh=None,
+    hoist: str | None = None,
+    encoder_reuse: int | None = None,
 ) -> torch.Tensor:
     """Sample stroke sequences [B, seq_len, 3] (float32) for tokenized prompts.
 
@@ -126,6 +131,25 @@ def generate(
     generator seeded alike everywhere) and keeps its rows. The model holds
     whole weights on every rank: the sampler's kernels need whole heads,
     so the sampler's mesh takes the data axis only.
+
+    hoist: "compact" (None, the default, as in dhg) rebuilds each step's
+    cross-attention K/V from the hoisted conditioning memory inside the
+    loop; "full" computes every level's K/V (and the null branch's under
+    guidance) before the loop, ~2,432 bf16 values per text token per level
+    at the canonical widths (B = 256, 50 tokens: ~3.7 GB). Full builds them
+    with the very calls compact makes in its loop, one precompute_cross_kv
+    a level, so the two give the same strokes bit for bit. dhg's
+    DHG_COND_CHUNK and DHG_SCAN_UNROLL are XLA scheduling knobs over the
+    same math; the port has no counterpart.
+
+    encoder_reuse=k > 1: the U-Net's encoder half runs every k-th step and
+    the decoder reuses its skip features in between
+    (core/sampling.py::diffusion_sample_encoder_reuse, on the full hoist;
+    experimental: k = 2 drifts past the 1e-3 bar on trained weights and
+    k >= 3 diverges). None or k <= 1 is the normal sampler. It excludes
+    guidance, as in dhg. dhg's reuse path ignores temperature and per-row
+    keys without a word; here it refuses them. Explicit x_init / noises
+    are taken.
     """
     dev = resolve_device(device)
     _check_model_device(model, dev)
@@ -134,6 +158,17 @@ def generate(
     temperature = 1.0 if temperature is None else float(temperature)
     if temperature <= 0.0:
         raise ValueError(f"temperature must be > 0, got {temperature}")
+    hoist = "compact" if hoist is None else hoist
+    if hoist not in ("compact", "full"):
+        raise ValueError(f"hoist must be 'compact' or 'full', got {hoist!r}")
+    if encoder_reuse is not None and encoder_reuse > 1:
+        if guidance_scale is not None:
+            raise ValueError("encoder_reuse and guidance_scale are mutually exclusive")
+        if temperature != 1.0 or sample_seeds is not None:
+            raise ValueError("encoder_reuse takes neither a temperature nor sample_seeds "
+                             "(dhg's reuse sampler has neither)")
+    else:
+        encoder_reuse = None
     beta_set = beta_table(N_STEPS if n_steps is None else int(n_steps), schedule, str(dev))
     if not isinstance(text, torch.Tensor):
         text = np.asarray(text)
@@ -152,18 +187,18 @@ def generate(
     if mesh is not None and mesh.data_group is not None:
         return _generate_split(mesh, model, text, style, generator, seq_len, diffusion_mode,
                                guidance_scale, n_steps, schedule, temperature, x_init, noises,
-                               beta_set.shape[0], dev)
+                               beta_set.shape[0], dev, hoist, encoder_reuse)
 
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
         return _sample(model, text, style, generator, seq_len, beta_set, diffusion_mode,
-                       guidance_scale, temperature, x_init, noises, dev)
+                       guidance_scale, temperature, x_init, noises, dev, hoist, encoder_reuse)
 
 
 def _generate_split(mesh, model, text, style, generator, seq_len, mode, guidance_scale, n_steps,
-                    schedule, temperature, x_init, noises, n, dev):
+                    schedule, temperature, x_init, noises, n, dev, hoist, encoder_reuse):
     """generate over the mesh's data group: this rank's rows of the whole
     batch's draws, then an all-gather of the rows in order."""
     from dhg_torch.parallel.sharding import all_gather_dim, is_sharded
@@ -187,12 +222,12 @@ def _generate_split(mesh, model, text, style, generator, seq_len, mode, guidance
     local = generate(model, text[rows], style[rows], seq_len=seq_len, diffusion_mode=mode,
                      guidance_scale=guidance_scale, n_steps=n_steps, schedule=schedule,
                      temperature=temperature, x_init=x_init[rows], noises=noises[:, rows],
-                     device=dev)
+                     device=dev, hoist=hoist, encoder_reuse=encoder_reuse)
     return all_gather_dim(local, 0, mesh.data_group, sizes)
 
 
 def _sample(model, text, style, generator, seq_len, beta_set, mode, guidance_scale,
-            temperature, x_init, noises, dev):
+            temperature, x_init, noises, dev, hoist="compact", encoder_reuse=None):
     alpha_set = get_alpha_set(beta_set)
     n = beta_set.shape[0]
     # Reverse schedule order: loop step t uses schedule index n-1-t. sigma is
@@ -206,24 +241,39 @@ def _sample(model, text, style, generator, seq_len, beta_set, mode, guidance_sca
         pre = model.encode_cond_pre(t_ids, s)
         return [model.encode_cond_tail(pre, se) for se in sigma_embs]
 
-    cond_all = encode_all(text, style)
+    full = hoist == "full" or encoder_reuse is not None  # reuse runs on the full hoist, as dhg's
+
+    def kv_of(cond_all):
+        """Step t's cross-attention K/V: every level's before the loop (full
+        hoist), else rebuilt in the loop from the level's memory (compact)."""
+        if not full:
+            return lambda t: model.precompute_cross_kv(cond_all[t], sigma_embs[t])
+        kv_all = [model.precompute_cross_kv(c, se) for c, se in zip(cond_all, sigma_embs)]
+        return lambda t: kv_all[t]
+
+    text_kv = kv_of(encode_all(text, style))
     text_mask = create_padding_mask(text)
+    if encoder_reuse is not None:
+        return diffusion_sample_encoder_reuse(
+            lambda x, t: model.encode_unet(x, None, None, text_mask, kvs=text_kv(t),
+                                           films=films[t]),
+            lambda feats, t: model.decode_unet(feats, None, None, text_mask, kvs=text_kv(t),
+                                               films=films[t]),
+            text.shape[0], seq_len, beta_set, mode=mode, reuse_every=int(encoder_reuse),
+            generator=generator, x_init=x_init, noises=noises, device=dev,
+        )
     guided = guidance_scale is not None
     if guided:
         null_text = torch.zeros_like(text)
         null_text[:, 0] = 1
-        null_cond_all = encode_all(null_text, torch.zeros_like(style))
+        null_kv = kv_of(encode_all(null_text, torch.zeros_like(style)))
         null_mask = create_padding_mask(null_text)
 
-    def unet(x, cond, t, mask):
-        kvs = model.precompute_cross_kv(cond, sigma_embs[t])
-        return model.denoise(x, None, None, mask, kvs=kvs, films=films[t])
-
     def denoise(x, sigma, t):
-        eps_c, pen = unet(x, cond_all[t], t, text_mask)
+        eps_c, pen = model.denoise(x, None, None, text_mask, kvs=text_kv(t), films=films[t])
         if not guided:
             return eps_c, pen
-        eps_u, _ = unet(x, null_cond_all[t], t, null_mask)
+        eps_u, _ = model.denoise(x, None, None, null_mask, kvs=null_kv(t), films=films[t])
         return eps_u + guidance_scale * (eps_c - eps_u), pen
 
     return diffusion_sample(
@@ -244,9 +294,12 @@ def sample_lines(
     schedule: str = "strided",
     temperature: float | None = None,
     device: str | torch.device = "cuda",
+    encoder_reuse: int | None = None,
+    mesh=None,
 ) -> list[np.ndarray]:
     """Sample many prompts in one padded batch; each returned [T_i, 3] array
-    is trimmed to its own 16 * len(tokens) length."""
+    is trimmed to its own 16 * len(tokens) length. encoder_reuse and mesh
+    go to generate."""
     text = Tokenizer().encode_batch(prompts, max_text_len)
     style = torch.as_tensor(style, dtype=torch.float32)
     if style.shape[0] == 1 and len(prompts) > 1:
@@ -256,6 +309,7 @@ def sample_lines(
         model, text, style, generator, seq_len=infer_seq_len(max(lengths)),
         diffusion_mode=diffusion_mode, guidance_scale=guidance_scale, n_steps=n_steps,
         schedule=schedule, temperature=temperature, device=device,
+        encoder_reuse=encoder_reuse, mesh=mesh,
     )
     arr = out.cpu().numpy()
     return [arr[i, : infer_seq_len(l)] for i, l in enumerate(lengths)]

@@ -270,16 +270,19 @@ class DiffusionModel(CastCache, nn.Module):
     def encode_unet(self, strokes, cond, sigma_emb, text_mask, kvs=None, films=None):
         """x_t -> (h1 [B,T,c1], h2 [B,T/2,c2], h3 [B,T/4,c3])."""
         cf = films["conv"] if films is not None else (None,) * 6
-        af = films["attn"] if films is not None else (None,) * (2 + self.num_layers)
         x = self.input_dense(strokes, self.dtype)
         h1 = self.enc1(x, sigma_emb, coeffs=cf[0])
         h2 = self.enc2(avg_pool_1d(h1), sigma_emb, coeffs=cf[1])
-        kv3 = kvs[0] if kvs is not None else self.enc3.text_kv(cond, sigma_emb)
-        if self._fuse_enc(strokes, kvs, films):
-            h2 = self._fused_layer(self.enc3, h2, kv3, af[0], text_mask)
-        else:
-            h2 = self.enc3.attend(h2, kv3, sigma_emb, text_mask, af[0])
+        h2 = self._encode_enc3(h2, cond, sigma_emb, text_mask, kvs, films)
         return h1, h2, self._encode_t4(avg_pool_1d(h2), cond, sigma_emb, text_mask, kvs, films)
+
+    def _encode_enc3(self, h2, cond, sigma_emb, text_mask, kvs, films):
+        """enc3 on enc2's output, through fused_encoder_layer where it applies."""
+        af = films["attn"] if films is not None else (None,) * (2 + self.num_layers)
+        kv3 = kvs[0] if kvs is not None else self.enc3.text_kv(cond, sigma_emb)
+        if self._fuse_enc(h2, kvs, films):
+            return self._fused_layer(self.enc3, h2, kv3, af[0], text_mask)
+        return self.enc3.attend(h2, kv3, sigma_emb, text_mask, af[0])
 
     def _fuse_enc(self, x, kvs, films) -> bool:
         """enc3/enc5 through fused_encoder_layer: the bottleneck's gate and
@@ -300,17 +303,21 @@ class DiffusionModel(CastCache, nn.Module):
         """pool, the bottleneck, upsample + skip_conv3(h3) and dec3: -> dec3's
         output [B, T/4, c3]."""
         cf = films["conv"] if films is not None else (None,) * 6
-        af = films["attn"] if films is not None else (None,) * (2 + self.num_layers)
-        x = avg_pool_1d(h3)
-        if self._can_fuse_bottleneck(kvs, films, x.device):
-            x = self._fused_bottleneck(x, kvs, films, text_mask)
-        else:
-            x = self.att_dense(x, self.dtype)
-            for i, layer in enumerate(self.att_layers):
-                kv = kvs[2 + i] if kvs is not None else layer.text_kv(cond, sigma_emb)
-                x = layer.attend(x, kv, sigma_emb, text_mask, af[2 + i])
+        x = self._bottleneck(avg_pool_1d(h3), cond, sigma_emb, text_mask, kvs, films)
         return self.dec3(upsample_nearest_1d(x) + self.skip_conv3(h3, self.dtype), sigma_emb,
                          coeffs=cf[3])
+
+    def _bottleneck(self, x, cond, sigma_emb, text_mask, kvs, films):
+        """att_dense and the att_layers stack at T/8, through fused_bottleneck
+        where it applies: [B, T/8, c3] -> [B, T/8, 2 c2]."""
+        if self._can_fuse_bottleneck(kvs, films, x.device):
+            return self._fused_bottleneck(x, kvs, films, text_mask)
+        af = films["attn"] if films is not None else (None,) * (2 + self.num_layers)
+        x = self.att_dense(x, self.dtype)
+        for i, layer in enumerate(self.att_layers):
+            kv = kvs[2 + i] if kvs is not None else layer.text_kv(cond, sigma_emb)
+            x = layer.attend(x, kv, sigma_emb, text_mask, af[2 + i])
+        return x
 
     def t4_region(self, x4, text_mask, kvs, films):
         """The default path (no DHG_FUSED_T4) over the region fused_unet_t4

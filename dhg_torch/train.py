@@ -38,9 +38,14 @@ Only rank 0 makes the run dir and writes run.log, metrics.jsonl,
 checkpoints (gathered to dhg's full layout) and the report; the others log
 nothing.
 
+training_args.profile_dir traces steps profile_start (default 10) through
+profile_start + profile_steps (default 5), both counted from 1 and both
+included, as dhg's loop runs them, with torch.profiler (host operators and,
+on CUDA, kernels; each step a `train_step <N>` span); rank 0 writes the
+Chrome trace into profile_dir after the last of them.
+
 Not in the port yet: training_args.steps_per_call is ignored (dhg scans K
-steps in one TPU program; here each step is its own call); profile_dir is
-ignored.
+steps in one TPU program; here each step is its own call, the same math).
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import logging
 import signal
 import socket
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import NamedTuple
 
@@ -508,11 +513,22 @@ class Trainer:
                 state.pop("optimizer")
             self.saver.submit(exp_dir / name, **state, **kwargs)
 
+        # dhg's window: 0 or unset means the default (`or`).
+        prof_start, prof_steps = ta.profile_start or 10, ta.profile_steps or 5
+        prof = None
         count = start
         try:
             while count < ta.steps:
                 count += 1
-                window.append(self.train_step(self.draw(count)))
+                if ta.profile_dir and main and count == prof_start:
+                    prof = self._start_profile()
+                with (nullcontext() if prof is None
+                      else torch.profiler.record_function(f"train_step {count}")):
+                    window.append(self.train_step(self.draw(count)))
+                if prof is not None and count == prof_start + prof_steps:
+                    self._stop_profile(prof, ta.profile_dir, prof_start, count)
+                    prof = None
+                    logger.info(f"Profiler trace written to {ta.profile_dir}")
                 if _InterruptFlag.pending:
                     _InterruptFlag.pending = False
                     raise KeyboardInterrupt
@@ -554,7 +570,27 @@ class Trainer:
                 state.pop("optimizer")
                 save_checkpoint(exp_dir / "model_last", **state)
         finally:
+            if prof is not None:  # the run ended inside the window: no trace, as in dhg
+                prof.stop()
             self.saver.wait()
+
+    def _start_profile(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir, first: int, last: int) -> None:
+        """Stop `prof` after step `last`'s work is done; its Chrome trace
+        goes to profile_dir/train_steps_<first>-<last>.json."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = Path(profile_dir) / f"train_steps_{first}-{last}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
 
 
 class _InterruptFlag:

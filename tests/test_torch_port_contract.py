@@ -16,6 +16,8 @@ from dhg_torch.models.denoiser import DiffusionModel
 from dhg_torch.config import DLConfig
 from dhg_torch.distill import Distiller
 from dhg_torch.distill import main as distill_main
+from dhg_torch.tools import (bench_hoist, eval_encoder_reuse, eval_fewer_steps,
+                             eval_parallel_sampler, profile_stages, sweep)
 from dhg_torch.tools.probe_distill import main as probe_main
 from dhg_torch.train import Trainer, main
 
@@ -86,6 +88,15 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         probe_main([f"--teacher={tmp_path / 'run'}", f"--student={tmp_path / 'run'}"])
     assert not (tmp_path / "runs").exists()
+    # The sampler tools (plot_run has no device work and takes no --device).
+    run = f"--experiment_path={tmp_path / 'run'}"
+    for tool, argv in ((eval_fewer_steps, [run]), (eval_encoder_reuse, [run]),
+                       (eval_parallel_sampler, [run]), (sweep, []), (bench_hoist, []),
+                       (profile_stages, [])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate(model, text, style, seq_len=16, n_steps=2, hoist="full", encoder_reuse=2)
 
 
 def test_cpu_path_runs_when_asked():

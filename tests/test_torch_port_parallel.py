@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from dhg_torch.config import DLConfig
-from dhg_torch.inference import generate
+from dhg_torch.inference import generate, sample_lines
 from dhg_torch.models.denoiser import DiffusionModel
 from dhg_torch.parallel.mesh import make_mesh, mesh_layout
 from dhg_torch.parallel.sharding import shard_dim, shard_state_dict
@@ -44,16 +44,19 @@ CFG = {
 GEN_MODEL = {"channels": C1, "att_layers_num": LAYERS}
 GEN_TEXT = [[5, 6, 7, 1, 0], [8, 9, 1, 0, 0], [10, 11, 12, 13, 1]]
 
+LINE_PROMPTS = ["hi", "a longer line", "ok"]
+
 WORKER = r"""
 import json, os, sys
 import torch
 torch.set_num_threads(1)
 rank, port, out, cfg = int(sys.argv[1]), sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
 steps, gen_model, gen_text = int(sys.argv[5]), json.loads(sys.argv[6]), json.loads(sys.argv[7])
+LINE_PROMPTS = json.loads(sys.argv[8])
 os.environ.update(DHG_COORDINATOR=f"localhost:{port}", DHG_NUM_PROCESSES="2",
                   DHG_PROCESS_ID=str(rank))
 from dhg_torch.config import DLConfig
-from dhg_torch.inference import generate
+from dhg_torch.inference import generate, sample_lines
 from dhg_torch.models.denoiser import DiffusionModel
 from dhg_torch.parallel import distributed as dist
 from dhg_torch.parallel.mesh import make_mesh
@@ -80,6 +83,9 @@ model = DiffusionModel.from_config(gen_model, device="cpu", seed=5)
 style = torch.randn((len(gen_text), 14, 1280), generator=torch.Generator().manual_seed(2))
 res["generate"] = generate(model, gen_text, style, torch.Generator().manual_seed(3), seq_len=16,
                            n_steps=4, device="cpu", mesh=make_mesh()).tolist()
+res["sample_lines"] = [a.tolist() for a in sample_lines(
+    model, LINE_PROMPTS, style, torch.Generator().manual_seed(4), n_steps=3, device="cpu",
+    mesh=make_mesh())]
 trainer = main(DLConfig(cfg), device="cpu")
 res["exp_dir"] = None if trainer.exp_dir is None else str(trainer.exp_dir)
 with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
@@ -104,7 +110,8 @@ def spawned(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     env.pop("DHG_COORDINATOR", None)
     port = _free_port()
-    args = [json.dumps(cfg), str(STEPS), json.dumps(GEN_MODEL), json.dumps(GEN_TEXT)]
+    args = [json.dumps(cfg), str(STEPS), json.dumps(GEN_MODEL), json.dumps(GEN_TEXT),
+            json.dumps(LINE_PROMPTS)]
     procs = [subprocess.Popen([sys.executable, str(tmp / "worker.py"), str(r), str(port),
                                str(tmp), *args], env=env, cwd=str(tmp),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -282,3 +289,18 @@ def test_generate_over_the_data_axis_matches_one_process(spawned):
         got = np.asarray(r["generate"], np.float32)
         assert got.shape == want.shape == (3, 16, 3)
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_sample_lines_over_the_data_axis_matches_one_process(spawned):
+    """sample_lines(mesh=) hands the mesh to generate: each rank returns the
+    one-process lines, each trimmed to its own length."""
+    _, ranks = spawned
+    model = DiffusionModel.from_config(GEN_MODEL, device="cpu", seed=5)
+    style = torch.randn((len(GEN_TEXT), 14, 1280), generator=torch.Generator().manual_seed(2))
+    want = sample_lines(model, LINE_PROMPTS, style, torch.Generator().manual_seed(4), n_steps=3,
+                        device="cpu")
+    for r in ranks:
+        got = [np.asarray(a, np.float32) for a in r["sample_lines"]]
+        assert [a.shape for a in got] == [a.shape for a in want] == [(56, 3), (232, 3), (56, 3)]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)

@@ -97,6 +97,31 @@ def test_interrupt_saves_checkpoint_last(tmp_path, monkeypatch):
     assert not tr._InterruptFlag.pending
 
 
+def _traced_steps(trace: Path) -> list[int]:
+    events = json.loads(trace.read_text())["traceEvents"]
+    return sorted({int(e["name"].split()[1]) for e in events
+                   if e.get("name", "").startswith("train_step ")})
+
+
+@pytest.mark.parametrize("start,steps,total,window", [
+    (2, 1, 4, (2, 3)),  # dhg's window: profile_steps + 1 steps from profile_start
+    (0, 1, 11, (10, 11)),  # a 0 is the default, 10 (dhg's `or`)
+])
+def test_profile_dir_traces_dhgs_window(tmp_path, start, steps, total, window):
+    cfg = cf.config_entrypoint([*TINY, f"--training_args.steps={total}",
+                                "--training_args.save_freq=100", "--training_args.ema_decay=0",
+                                f"--training_args.profile_dir={tmp_path / 'trace'}",
+                                f"--training_args.profile_start={start}",
+                                f"--training_args.profile_steps={steps}",
+                                f"--experiment.work_dir={tmp_path / 'runs'}"])
+    trainer = tr.main(cfg, device="cpu")
+    (trace,) = (tmp_path / "trace").iterdir()
+    assert trace.name == f"train_steps_{window[0]}-{window[1]}.json"
+    assert _traced_steps(trace) == list(range(window[0], window[1] + 1))
+    assert f"Profiler trace written to {tmp_path / 'trace'}" in (
+        trainer.exp_dir / "run.log").read_text()
+
+
 def test_unported_options_refuse(tmp_path):
     base = {"experiment": {}, "dataset_args": {}, "optimizer": {"type": "torch.optim.Adam"},
             "training_args": {"channels": 16, "att_layers_num": 1, "batch_size": 2,

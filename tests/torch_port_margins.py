@@ -8,7 +8,8 @@ Sections: encoder_layer (the sampler's enc3/enc5 kernel), attention,
 conv_block, optimizer, trajectory (the training path), t4, front_end (the
 T4 region and the infer front end), serve (the serving slice's sampler
 against dhg's per-request keys, and one served group against dhg's
-service); all by default.
+service), samplers (the full hoist, encoder reuse and Jacobi DDIM
+against dhg's); all by default.
 Not a test module (pytest does not collect it); it reuses the helpers of
 the tests/test_torch_port_*.py files it names.
 """
@@ -209,9 +210,26 @@ def serve():
           f"{float(np.mean(diff ** 2)):.2g} (bar 1e-3)")
 
 
+def samplers():
+    import test_torch_port_samplers as tsm
+
+    ctx = tsm.make_ctx()
+    for label, (key, ref), kw in (("full hoist", tsm.dhg_full_of(ctx), {"hoist": "full"}),
+                                  ("encoder reuse 2", tsm.dhg_reuse_of(ctx),
+                                   {"encoder_reuse": 2})):
+        ours = tsm.port_on_dhg_draws(ctx, key, **kw).numpy()
+        print(f"{label} vs dhg's generate: stroke MSE {tsm._stroke_mse(ours, ref):.2g} (bar 1e-3)")
+    x_t, ref, seq = tsm.jacobi_of(ctx)
+    _, ests = tsm.port_jacobi(ctx, x_t)
+    worst = max(tsm._stroke_mse(a, b) for a, b in zip(ests.numpy(), ref))
+    print(f"Jacobi DDIM ({tsm.JACOBI_N} levels) vs dhg's, worst sweep: stroke MSE {worst:.2g} "
+          f"(bar 1e-3); last sweep vs sequential DDIM {tsm._stroke_mse(ests[-1], seq):.2g} "
+          f"(bar 2e-9)")
+
+
 if __name__ == "__main__":
     sections = dict(encoder_layer=encoder_layer, attention=attention, conv_block=conv_block,
-                    optimizer=optimizer,
-                    trajectory=trajectory, t4=t4, front_end=front_end, serve=serve)
+                    optimizer=optimizer, trajectory=trajectory, t4=t4, front_end=front_end,
+                    serve=serve, samplers=samplers)
     for name in sys.argv[1:] or sections:
         sections[name]()

@@ -151,6 +151,22 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  each stage's kernels) at small arguments, each report's
                  JSON parsed and its keys checked, and plot_run's PNG of
                  the profile run
+  7h. style trunk — flax's random MobileNetV2 init (the default trunk,
+                 data/mobilenetv2_tv.npz being absent): its feature std on
+                 eval_style_gap's 8 x 6 benchmark lines (fatal below 1e-4; a
+                 torch-default init gave ~1e-8); tools/train_style_trunk.py at
+                 dhg's defaults (600 steps, 128 writers x 16 lines, batch 64,
+                 width 384; steps/s), then `evaluate` of the trained and the
+                 random trunk on the 8 x 6 benchmark; tree mode on phase 7d's
+                 tree (32 forms, 100 steps, held-out retrieval); the
+                 eval_style_gap CLI (8 x 6, the style ablation on phase 7d's
+                 run): the trained trunk's retrieval must beat its
+                 pixel_baseline; eval_fsd_sensitivity on phase 7d's train
+                 cache (n = min(48, rows // 2), the random and the trained
+                 trunk); eval_style_pathway on phase 7d's run (both probes);
+                 each report's keys dhg's plus "backend"; none of the five
+                 kernels launched (counts zeroed before the phase, read
+                 after); the phase within STYLE_PHASE_S seconds
   8. train rate — train_steps_per_sec_batch96 with both kernels and with
                  both flags off, in turns (off, on, on, off): CUDA events
                  over 10 steps after one warm-up step
@@ -226,6 +242,23 @@ TOOL_KEYS = {
                     "backend"},
     "profile_stages": {"batch", "seq_len", "backend", "ms_per_step", "stage_sum_ms", "glue_ms",
                        "pct_of_full", "kernels"},
+}
+# Phase 7h: train_style_trunk at dhg's defaults; tree mode (forms, steps);
+# the phase's time limit (seconds).
+STYLE_TRUNK = {"steps": 600, "writers": 128, "per_writer": 16, "batch": 64, "width": 384}
+STYLE_TREE = {"writers": 32, "steps": 100, "batch": 64, "width": 384}
+STYLE_PHASE_S = 120.0
+RETRIEVAL_KEYS = {"top1_retrieval", "intra_cos_dist", "inter_cos_dist", "intra_over_inter"}
+STYLE_KEYS = {
+    "train_style_trunk": {"out", "final_ce", "final_acc", "backend"},
+    "eval_style_gap": {"n_writers", "per_writer", "chance", "pixel_baseline", "backend"}
+    | RETRIEVAL_KEYS,
+    "eval_style_gap_ablation": {"mse_A_vs_B", "mse_A_vs_zero", "mse_B_vs_zero",
+                                "output_mean_sq", "style_vec_cos_A_B", "backend"},
+    "eval_fsd_sensitivity": {"n", "levels", "backend", "random_init", "trained"},
+    "eval_fsd_sensitivity_trunk": {"fsd", "noise_floor", "monotone_above_floor",
+                                   "range_vs_floor", "feature_std"},
+    "eval_style_pathway": {"checkpoint", "output_swap", "val_loss_by_style", "backend"},
 }
 # The training forward's attention calls at T = 480, L = 50: (label, H, Tq,
 # Tk, D, masked, launches a step).
@@ -1350,6 +1383,8 @@ def iam_phase(report, tmp):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  iam phase {out['phase_s']:.1f} s")
     report["iam"] = out
+    return {"tree": root, "run": run, "cache": out["train"]["built"],
+            "rows": len(caches["train"])}
 
 
 def kernel_launches() -> dict:
@@ -1881,6 +1916,126 @@ def optin_phase(run, tmp, report):
     report["optin"] = out
 
 
+def style_phase(iam, tmp, report):
+    """Phase 7h: the random trunk's scale, the style-trunk trainer and the
+    three style tools on phase 7d's tree, cache and run (see the module
+    docstring)."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from dhg_torch.tools import eval_fsd_sensitivity as fsd
+    from dhg_torch.tools import eval_style_gap as gap
+    from dhg_torch.tools import eval_style_pathway as pathway
+    from dhg_torch.tools import train_style_trunk as tst
+
+    t_phase = time.perf_counter()
+    reset_all_counts()
+    out: dict = {}
+
+    def quiet(fn, *args, **kw):
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            result = fn(*args, **kw)
+        return result, said.getvalue()
+
+    def check_keys(label, got, want):
+        if set(got) != want:
+            fail(f"{label}: report keys {sorted(got)}, expected {sorted(want)}")
+
+    # -- the random trunk's scale (flax's init) -------------------------------------
+    t0 = time.perf_counter()
+    imgs, labels = gap.benchmark_lines(gap.BENCHMARK_WRITERS, gap.BENCHMARK_LINES,
+                                       gap.BENCHMARK_WIDTH)
+    vecs = gap.style_vectors(gap.quiet_extractor(device="cuda"), imgs)
+    out["random_trunk"] = {"feature_std": float(vecs.std()),
+                           "feature_std_per_dim_mean": float(vecs.std(axis=0).mean()),
+                           "wall_s": time.perf_counter() - t0}
+    log(f"  random trunk (flax's init, seed 0): feature std {vecs.std():.4g} over "
+        f"{len(imgs)} benchmark lines (a torch-default init gave ~1e-8)")
+    if not 1e-4 < vecs.std() < 1.0 or not np.isfinite(vecs).all():
+        fail(f"style: the random trunk's features are off scale (std {vecs.std():.3g})")
+
+    # -- train_style_trunk at dhg's defaults, then evaluate ------------------------
+    stats: dict = {}
+    trunk = str(Path(tmp) / "style_trunk_synth.npz")
+    res, said = quiet(tst.train, out=trunk, device="cuda", stats=stats, **STYLE_TRUNK)
+    log("    " + "\n    ".join(said.strip().splitlines()[-4:]))
+    check_keys("train_style_trunk", res, STYLE_KEYS["train_style_trunk"])
+    t0 = time.perf_counter()
+    trained = tst.evaluate(trunk, "cuda")
+    random_ret = tst.evaluate(None, "cuda")
+    eval_s = time.perf_counter() - t0
+    log(f"  train_style_trunk {STYLE_TRUNK}: set built in {stats['build_s']:.1f} s, "
+        f"{stats['steps_per_sec']:.2f} steps/s ({stats['train_s']:.1f} s), final ce "
+        f"{res['final_ce']:.4f}, batch acc {res['final_acc']:.3f}")
+    log(f"  evaluate (8 x 6 benchmark): trained {trained}; random {random_ret} "
+        f"({eval_s:.1f} s for both)")
+    if not np.isfinite(res["final_ce"]) or set(trained) != RETRIEVAL_KEYS:
+        fail("train_style_trunk: bad result")
+    out["train_style_trunk"] = dict(res, **stats, trained=trained, random=random_ret,
+                                    evaluate_s=eval_s, config=STYLE_TRUNK)
+
+    # -- tree mode on phase 7d's tree -----------------------------------------------
+    tree_stats: dict = {}
+    tree_res, said = quiet(tst.train, out=str(Path(tmp) / "style_trunk_tree.npz"),
+                           tree=str(iam["tree"]), device="cuda", stats=tree_stats, **STYLE_TREE)
+    check_keys("train_style_trunk --tree", tree_res,
+               STYLE_KEYS["train_style_trunk"] | {"holdout_retrieval"})
+    log(f"  tree mode {STYLE_TREE}: set built in {tree_stats['build_s']:.1f} s, "
+        f"{tree_stats['steps_per_sec']:.2f} steps/s, final ce {tree_res['final_ce']:.4f}, "
+        f"held-out forms {tree_res['holdout_retrieval']}")
+    out["tree_mode"] = dict(tree_res, **tree_stats, config=STYLE_TREE)
+
+    # -- eval_style_gap (8 x 6; the ablation on phase 7d's run) ----------------------
+    t0 = time.perf_counter()
+    gap_rep, _ = quiet(gap.main, ["--device=cuda", f"--experiment_path={iam['run']}"])
+    disc, abl = gap_rep["discrimination"], gap_rep["ablation"]
+    check_keys("eval_style_gap", disc, STYLE_KEYS["eval_style_gap"])
+    check_keys("eval_style_gap ablation", abl, STYLE_KEYS["eval_style_gap_ablation"])
+    pixels = disc["pixel_baseline"]["top1_retrieval"]
+    log(f"  eval_style_gap: random trunk {disc['top1_retrieval']}, pixels {pixels}, chance "
+        f"{disc['chance']}; ablation {abl} ({time.perf_counter() - t0:.1f} s)")
+    out["eval_style_gap"] = dict(gap_rep, wall_s=time.perf_counter() - t0)
+    if not trained["top1_retrieval"] > pixels:
+        fail(f"style: the trained trunk retrieves {trained['top1_retrieval']}, not above the "
+             f"raw-pixel baseline's {pixels}")
+
+    # -- eval_fsd_sensitivity on phase 7d's train cache ------------------------------
+    t0 = time.perf_counter()
+    n = min(48, iam["rows"] // 2)
+    fsd_rep, _ = quiet(fsd.main, ["--device=cuda", f"--cache={iam['cache']}",
+                                  f"--weights={trunk}", f"--n={n}"])
+    check_keys("eval_fsd_sensitivity", fsd_rep, STYLE_KEYS["eval_fsd_sensitivity"])
+    for name in ("random_init", "trained"):
+        check_keys(f"eval_fsd_sensitivity {name}", fsd_rep[name],
+                   STYLE_KEYS["eval_fsd_sensitivity_trunk"])
+        if not all(np.isfinite(v) for v in fsd_rep[name]["fsd"].values()):
+            fail(f"eval_fsd_sensitivity: non-finite FSD ({name})")
+        log(f"  FSD {name} (n {n}): {fsd_rep[name]}")
+    log(f"  (dhg's record, random trunk, rasterised pages: feature std 9.3e-5); "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["eval_fsd_sensitivity"] = dict(fsd_rep, wall_s=time.perf_counter() - t0)
+
+    # -- eval_style_pathway on phase 7d's run -----------------------------------------
+    t0 = time.perf_counter()
+    path_rep, _ = quiet(pathway.main, ["--device=cuda", f"--experiment_path={iam['run']}"])
+    check_keys("eval_style_pathway", path_rep, STYLE_KEYS["eval_style_pathway"])
+    log(f"  eval_style_pathway: {path_rep['output_swap']}; {path_rep['val_loss_by_style']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["eval_style_pathway"] = dict(path_rep, wall_s=time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches over the phase {launches}; style phase {out['phase_s']:.1f} s")
+    report["style"] = out
+    if any(launches.values()):
+        fail(f"style: kernels launched ({launches}); none is on this path")
+    if out["phase_s"] > STYLE_PHASE_S:
+        fail(f"style: the phase took {out['phase_s']:.1f} s (limit {STYLE_PHASE_S:.0f} s)")
+
+
 def train_rate_phase(report):
     from dhg_torch.config import DLConfig
     from dhg_torch.tools.profile_train import best_config
@@ -2001,7 +2156,7 @@ def main() -> None:
         log("== serve: dhg_torch.serve on the train run's model_final (f32, CUDA graphs)")
         serve_phase(run, tmp, report)
         log("== iam: a generated IAM tree -> caches -> train -> average -> eval, metrics")
-        iam_phase(report, tmp)
+        iam = iam_phase(report, tmp)
         log("== distill: dhg_torch.distill 60 -> 30 from the train run, flags off and on; "
             "infer, probe_distill, the bf16 probe")
         distill_phase(run, tmp, report)
@@ -2010,6 +2165,9 @@ def main() -> None:
         log("== opt-in samplers and tools: full hoist, encoder reuse, Jacobi DDIM, training's "
             "profile_dir, dhg_torch/tools")
         optin_phase(run, tmp, report)
+        log("== style trunk: the random init's scale, train_style_trunk, eval_style_gap, "
+            "eval_fsd_sensitivity, eval_style_pathway")
+        style_phase(iam, tmp, report)
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
 

@@ -388,18 +388,24 @@ class DiffusionModel(CastCache, nn.Module):
         return model.to(dev).eval()
 
 
+# dhg's FiLM beta bias bound is 1/sqrt(32) at every width (dhg/ops/basic.py
+# SIGMA_EMB_DIM): the canonical sigma embedding's width, c1 // 4 at c1 = 128.
+FILM_BETA_BIAS_FAN_IN = 32
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """torch-default-style init from one generator, in module order:
-    weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), FiLM gamma biases
-    1, embeddings N(0, 1)."""
+    """dhg's init (dhg/ops/init.py, torch's defaults) from one generator, in
+    module order: weights U(-1/sqrt(fan_in), 1/sqrt(fan_in)), biases the
+    same with the layer's fan_in, but FiLM gamma biases 1 and FiLM beta
+    biases at fan_in FILM_BETA_BIAS_FAN_IN; embeddings N(0, 1)."""
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Embedding):
             mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator))
         elif isinstance(mod, (nn.Linear, nn.Conv1d)):
             fan_in = mod.weight[0].numel()
-            bound = 1.0 / fan_in ** 0.5
-            for p in (mod.weight, mod.bias):
-                p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * bound)
+            bias_fan_in = FILM_BETA_BIAS_FAN_IN if name.endswith("beta_emb") else fan_in
+            for p, f in ((mod.weight, fan_in), (mod.bias, bias_fan_in)):
+                p.copy_((torch.rand(p.shape, generator=generator) * 2 - 1) * (1.0 / f ** 0.5))
             if name.endswith("gamma_emb"):
                 mod.bias.fill_(1.0)

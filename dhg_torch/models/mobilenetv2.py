@@ -11,12 +11,26 @@ in dhg, not Pallas kernels. Module names follow dhg's flax names
 (stem, block_<stage>_<i>.{expand,dw,project,project_bn}, head), so
 dhg_torch.weights.style_state_dict_from_flat maps a dhg .npz onto them.
 On CUDA the caller keeps TF32 off (cudnn.allow_tf32 = False).
+
+The random init (lecun_init) follows flax's defaults, as dhg's trunk
+draws it where no weights file is given: every conv kernel is
+lecun_normal, a normal truncated to [-2 sigma, 2 sigma] with variance
+1 / fan_in (flax's variance_scaling(1, "fan_in", "truncated_normal")),
+fan_in = kh kw cin / groups; BatchNorm starts at weight 1, bias 0, mean 0,
+var 1. torch's own conv init (kaiming-uniform, std 1 / sqrt(3 fan_in))
+would shrink the signal by about sqrt(3) at each of the trunk's 52 convs,
+BatchNorm on fixed statistics never renormalising it. The draws come from
+a torch.Generator: the distribution is flax's, the bits are not jax's.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+# flax's variance_scaling divides the target std by the std of a unit normal
+# truncated to [-2, 2], so that the truncated draw has exactly that std.
+TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 # (expansion t, out channels c, repeats n, first stride s)
 INVERTED_RESIDUAL_SETTINGS = (
@@ -28,6 +42,22 @@ INVERTED_RESIDUAL_SETTINGS = (
     (6, 160, 3, 2),
     (6, 320, 1, 1),
 )
+
+
+@torch.no_grad()
+def lecun_init(module: nn.Module, generator: torch.Generator | None = None) -> None:
+    """flax's default init for every Conv2d and Linear under `module`, in
+    module order: lecun_normal kernels (fan_in = weight[0].numel(): a
+    Linear's in, a Conv2d's cin / groups x kh x kw), zero biases. BatchNorm
+    keeps torch's init (weight 1, bias 0, running mean 0 and var 1), as
+    flax's."""
+    for mod in module.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            std = (1.0 / mod.weight[0].numel()) ** 0.5 / TRUNCATED_NORMAL_STD
+            nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
 
 
 class ConvBNReLU(nn.Module):

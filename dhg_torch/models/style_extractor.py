@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from dhg_torch import resolve_device
-from dhg_torch.models.mobilenetv2 import MobileNetV2Features
+from dhg_torch.models.mobilenetv2 import MobileNetV2Features, lecun_init
 
 logger = logging.getLogger(__name__)
 
@@ -61,21 +61,29 @@ class StyleExtractor(nn.Module):
         return torch.einsum("bcw,wo->boc", x, bins)
 
 
+def random_style_extractor(generator: torch.Generator) -> StyleExtractor:
+    """A StyleExtractor on the CPU with flax's default init drawn from
+    `generator` (mobilenetv2.lecun_init); train mode, gradients on."""
+    with torch.random.fork_rng(devices=[]):  # torch's own init draws from the global stream
+        model = StyleExtractor()
+    lecun_init(model, generator)
+    return model
+
+
 def init_style_extractor(weights_path: str | Path | None = None, seed: int = 0,
                          strict: bool = False, device: str | torch.device = "cuda"
                          ) -> StyleExtractor:
     """The frozen extractor in eval mode on `device`.
 
     weights_path: dhg's flat .npz; None resolves to DEFAULT_WEIGHTS_PATH.
-    If the file is absent the trunk keeps torch's random init from `seed`
-    and a loud warning is emitted (the reference runs pretrained features,
+    If the file is absent the trunk keeps its random init, flax's defaults
+    drawn from a generator seeded with `seed` (mobilenetv2.lecun_init), and
+    a loud warning is emitted (the reference runs pretrained features,
     so its style vectors diverge completely); strict=True raises instead."""
     from dhg_torch.weights import style_state_dict_from_flat
 
     dev = resolve_device(device)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = StyleExtractor()
+    model = random_style_extractor(torch.Generator().manual_seed(seed))
     resolved = Path(weights_path) if weights_path is not None else DEFAULT_WEIGHTS_PATH
     if resolved.exists():
         with np.load(resolved) as flat:

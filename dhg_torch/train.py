@@ -95,6 +95,30 @@ def noam_schedule(d_model: int, warmup_steps: int, lr_mul: float = 1.0):
     return schedule
 
 
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
+                        decay_steps: int, end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule in float32: a linear ramp from
+    init_value to peak_value over warmup_steps counts, then a cosine from
+    peak_value to end_value that ends at count decay_steps and holds there.
+    Like optax it raises ValueError when decay_steps <= warmup_steps."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay_steps - warmup_steps}.")
+    f32 = np.float32
+    alpha = f32(0.0 if peak_value == 0.0 else end_value / peak_value)
+    span = f32(decay_steps - warmup_steps)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = f32(1) - f32(count) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac + f32(peak_value))
+        n = min(f32(count - warmup_steps), span)
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * n / span))
+        return float(f32(peak_value) * ((f32(1) - alpha) * cosine + alpha))
+
+    return schedule
+
+
 def agc_dims(module: nn.Module, p: torch.Tensor) -> tuple[int, ...]:
     """The dims optax's unitwise_norm reduces, in the torch layout of `p`:
     vectors (after squeeze) whole; else axis 0 of the flax layout, which is

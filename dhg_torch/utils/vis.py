@@ -287,6 +287,45 @@ def stamp_segments(img: np.ndarray, a: np.ndarray, b: np.ndarray, radius: float,
         img[np.clip(cy + dy, 0, height - 1), np.clip(cx + dx, 0, width - 1)] = value
 
 
+def segments_aa(img: np.ndarray, a: np.ndarray, b: np.ndarray, radius: float,
+                value: float = 0.0, piece: float = 6.0) -> None:
+    """Ink `img` [H, W] in place along the segments a[i] -> b[i] ([N, 2],
+    (column, row), pixel centres at integer coordinates as in cv2) with a
+    round pen of `radius` pixels, anti-aliased: a pixel's coverage is
+    clip(radius + 0.5 - d, 0, 1), d its distance to the nearest segment (a
+    one-pixel ramp across the edge), and it is blended once towards
+    `value` (rounded where img is integer). Segments are cut into pieces of
+    at most `piece` pixels, each scored over one fixed square window, all
+    pieces at once."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    n = np.maximum(np.ceil(np.hypot(*(b - a).T) / piece).astype(np.int64), 1)
+    seg = np.repeat(np.arange(len(n)), n)
+    k = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    d = (b - a)[seg]
+    p0 = a[seg] + d * (k / n[seg])[:, None]
+    step = (d / n[seg][:, None]).astype(np.float32)  # [P, 2] each piece's own vector
+    reach = radius + 1.0
+    size = int(np.ceil(piece + 2 * reach)) + 1
+    lo = np.floor(np.minimum(p0, p0 + step) - reach).astype(np.int64)  # [P, 2] window corners
+    off = np.arange(size, dtype=np.float32)
+    start = (lo - p0).astype(np.float32)  # the window's corner relative to the piece's start
+    ux = start[:, 0, None, None] + off[None, None, :]  # [P, 1, size]
+    uy = start[:, 1, None, None] + off[None, :, None]  # [P, size, 1]
+    dc, dr = step[:, 0, None, None], step[:, 1, None, None]
+    length2 = dc * dc + dr * dr
+    t = np.clip((ux * dc + uy * dr) / np.where(length2 > 0, length2, np.float32(1)), 0, 1)
+    dx, dy = ux - t * dc, uy - t * dr
+    cover = np.clip(np.float32(radius + 0.5) - np.sqrt(dx * dx + dy * dy), 0, 1)
+    height, width = img.shape
+    p, i, j = np.nonzero(cover > 0)
+    row, col = lo[p, 1] + i, lo[p, 0] + j
+    inside = (col >= 0) & (col < width) & (row >= 0) & (row < height)
+    alpha = np.zeros(height * width, np.float32)
+    np.maximum.at(alpha, (row * width + col)[inside], cover[p, i, j][inside])
+    out = img + (value - img.astype(np.float32)) * alpha.reshape(height, width)
+    img[...] = np.round(out) if img.dtype.kind in "iu" else out
+
+
 def save_strokes(
     strokes: np.ndarray,
     name: str,

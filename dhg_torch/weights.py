@@ -158,3 +158,29 @@ def style_state_dict_from_flat(flat: dict) -> "OrderedDict[str, torch.Tensor]":
     if extra:
         raise KeyError(f"style weights: {len(extra)} unexpected entries, e.g. {extra[:3]}")
     return out
+
+
+def flat_from_style_state_dict(sd: dict) -> dict[str, np.ndarray]:
+    """The inverse of style_state_dict_from_flat: a StyleExtractor state_dict
+    -> dhg's flat .npz entries (float32 numpy), which dhg's
+    init_style_extractor and the port's load strict.
+
+      * Conv2d weight OIHW -> kernel HWIO;
+      * BatchNorm weight, bias -> params/.../scale, bias; running_mean,
+        running_var -> batch_stats/.../mean, var (num_batches_tracked is
+        dropped: dhg has none)."""
+    out: dict[str, np.ndarray] = {}
+    for name, value in sd.items():
+        *path, leaf = name.split(".")
+        module = "/".join(path)
+        a = value.detach().cpu().float().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf == "weight" and path[-1] in ("conv", "project"):
+            out[f"params/{module}/kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        else:
+            kind, flax_leaf = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                               "running_mean": ("batch_stats", "mean"),
+                               "running_var": ("batch_stats", "var")}[leaf]
+            out[f"{kind}/{module}/{flax_leaf}"] = a.copy()
+    return out

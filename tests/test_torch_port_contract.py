@@ -17,7 +17,8 @@ from dhg_torch.config import DLConfig
 from dhg_torch.distill import Distiller
 from dhg_torch.distill import main as distill_main
 from dhg_torch.tools import (bench_hoist, eval_encoder_reuse, eval_fewer_steps,
-                             eval_parallel_sampler, profile_stages, sweep)
+                             eval_fsd_sensitivity, eval_parallel_sampler, eval_style_gap,
+                             eval_style_pathway, profile_stages, sweep, train_style_trunk)
 from dhg_torch.tools.probe_distill import main as probe_main
 from dhg_torch.train import Trainer, main
 
@@ -97,6 +98,20 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
             tool.main(argv)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate(model, text, style, seq_len=16, n_steps=2, hoist="full", encoder_reuse=2)
+
+
+@pytest.mark.parametrize("tool,argv", [
+    (train_style_trunk, ["--steps=60", "--writers=2", "--per_writer=1"]),
+    (eval_style_gap, []),
+    (eval_fsd_sensitivity, ["--cache=cache.npz"]),
+    (eval_style_pathway, ["--experiment_path=run"]),
+], ids=lambda v: getattr(v, "__name__", "").rsplit(".", 1)[-1] or None)
+def test_style_tools_refuse_the_cpu_by_default(no_cuda, tool, argv, tmp_path):
+    """The style-trunk tools, before any work or file, without --device."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tool.main(argv + [f"--out={tmp_path / 'trunk.npz'}"] if tool is train_style_trunk
+                  else argv)
+    assert not (tmp_path / "trunk.npz").exists()
 
 
 def test_cpu_path_runs_when_asked():

@@ -6,6 +6,9 @@
 Phases, each fatal on failure (nonzero exit, no result line):
   1. card      — device name; nvidia-smi name and power limit
   2. build     — nvcc builds dhg_torch/kernels/csrc/*.cu for sm_90a (timed)
+                 on a background thread while phase 7c (serve, which runs no
+                 kernel) runs on a plain run of the train cell; the kernel
+                 phases start once both are done
   3. kernels   — each CUDA kernel against its plain PyTorch version on the
                  card, at the shapes its path gives it. Sampler kernels
                  (canonical model, seq_len 392, 50 text tokens): bottleneck at
@@ -71,9 +74,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  data/style_trunk_synth.npz, a 23-character prompt to a PNG
                  (decoded again through dhg_torch.data.images), then
                  --wrap=12 to an SVG; strokes finite, no kernel launched
-  7c. serve    — dhg_torch.serve on that run dir (f32, as dhg's serve; no
-                 kernel launched): GenerationService.from_experiment with a
-                 bank of two style PNGs, warm-up of dhg's default grid
+  7c. serve    — dhg_torch.serve (run first, beside the build) on the run
+                 dir of a 20-step plain run of phase 7's train cell (both
+                 train flags off; f32, as dhg's serve; no kernel launched):
+                 GenerationService.from_experiment with a bank of two style
+                 PNGs, warm-up of dhg's default grid
                  (buckets 200 and 400, modes new and standard, max_batch 16:
                  20 captured CUDA graphs; seconds and peak memory logged); a
                  replay at batch 1 and 16 bit-identical to the eager
@@ -121,7 +126,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  train flags, 5 steps): in an NCCL group of one process,
                  equal bit for bit to the run without a group; two
                  processes sharing the card under gloo at data_parallel 2,
-                 then model_parallel 2 (each run.log shows its mesh), losses
+                 then model_parallel 2 (each run.log shows its mesh, and
+                 that steps_per_call auto is 1 under gloo), losses
                  within 1e-4 relative of the run without a group, one run
                  dir; the model_parallel run's model_final loads strictly
                  into a one-device model
@@ -170,6 +176,26 @@ Phases, each fatal on failure (nonzero exit, no result line):
   8. train rate — train_steps_per_sec_batch96 with both kernels and with
                  both flags off, in turns (off, on, on, off): CUDA events
                  over 10 steps after one warm-up step
+  8b. chunks   — training_args.steps_per_call on the train cell
+                 (tools/profile_train.py::best_config), flags off, then on:
+                 an eager trainer (train_step, steps 1-20) against a chunked
+                 one (train_chunk 16 + 4: the first step eager, then the
+                 captured step graph replayed) from one init, an `evaluate`
+                 of each before the steps, after 16 and after 20: params,
+                 EMA, Adam moments, the [20, 3] rows and the evaluations
+                 equal bit for bit, launches equal (9 and 6 a step with the
+                 flags, none without); then eager and replayed
+                 train_steps_per_sec_batch96 in turns (eager, chunk, chunk,
+                 eager; CUDA events over 16 steps), the capture seconds,
+                 the peak memory of each trainer, and the idle share of a
+                 profiled 16-step chunk beside 4 eager steps; then the same
+                 equality with dropout 0.1 at channels 32, flags on (9
+                 attention launches a step; the live dropout closes the
+                 conv block's gate, as in dhg); last, at channels 32, a
+                 captured CUDA graph left in a dead reference cycle (as a
+                 stopped server leaves its graphs) and a garbage collection
+                 inside the step's capture: the chunk must be captured,
+                 with the collector off during the capture
 The weights are random (seed 0); depth is the canonical 2 attention layers.
 
 Stdout ends with the kernels line, the nvidia-smi line and, last,
@@ -186,6 +212,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -887,6 +914,20 @@ def reset_all_counts() -> None:
     fc.reset_launch_count()
 
 
+def plain_train_run(tmp):
+    """The run dir of a 20-step run of the train cell with both train flags
+    off, for the serve phase, which runs beside the kernels' build."""
+    from pathlib import Path
+
+    from dhg_torch.config import DLConfig
+    from dhg_torch.tools.profile_train import best_config
+    from dhg_torch.train import main as train_main
+
+    set_train_flags(False)
+    cfg = DLConfig(best_config(Path(tmp) / "serve_run", TRAIN_STEPS, TRAIN_B))
+    return train_main(cfg, device="cuda").exp_dir
+
+
 def train_phase(report, tmp):
     from dhg_torch.config import DLConfig
     from dhg_torch.inference import sample_lines
@@ -1028,7 +1069,7 @@ def batch_timeline(log_rows):
 
 
 def serve_phase(run, tmp, report):
-    """The serving runtime on the train run's model_final (f32, as dhg's
+    """The serving runtime on a run dir's model_final (f32, as dhg's
     serve): warm-up of dhg's default grid (buckets 200 and 400, modes new and
     standard, max_batch 16: 20 captured graphs), one replay against the eager
     generate bit for bit at batch 1 and 16, replay and eager calls timed and
@@ -1038,7 +1079,6 @@ def serve_phase(run, tmp, report):
     drained by SIGTERM. Kernel counts zeroed before and read after: this
     path runs no kernel (f32)."""
     import signal
-    import threading
 
     from dhg_torch.core.sampling import per_sample_noise_streams
     from dhg_torch.data.tokenizer import Tokenizer
@@ -1388,11 +1428,9 @@ def iam_phase(report, tmp):
 
 
 def kernel_launches() -> dict:
-    from dhg_torch.kernels import fused_attention as fa
-    from dhg_torch.kernels import fused_bottleneck as fk
-    from dhg_torch.kernels import fused_conv_block as fc
+    from dhg_torch.kernels.runtime import launch_counts
 
-    return {**fa.launches, **fc.launches, **fk.launches}
+    return launch_counts()
 
 
 def distill_phase(run, tmp, report):
@@ -1644,6 +1682,8 @@ def multiprocess_phase(tmp, report):
         run_log = (Path(results[label]["run"]) / "run.log").read_text()
         if f"mesh (data, model) {mesh}" not in run_log:
             fail(f"multiprocess: {label}'s run.log does not show the mesh {mesh}")
+        if "steps_per_call auto is 1 under the gloo process group" not in run_log:
+            fail(f"multiprocess: {label}'s run.log does not say that auto is 1 under gloo")
         log(f"  (b) {label}: mesh {mesh}; max relative loss diff against the solo run {rel:.3g}")
         if got.shape != solo.shape or rel > 1e-4:
             fail(f"multiprocess: {label} losses differ from the solo run by {rel:.3g} relative")
@@ -2065,6 +2105,189 @@ def train_rate_phase(report):
     report["train_steps_per_sec_batch96_runs"] = rates
 
 
+def chunk_case(cfg, label, timed: bool) -> dict:
+    """Phase 8b's case: an eager trainer (train_step, steps 1-20) and a
+    chunked one (train_chunk: 16 steps, then 4) from one init and seed, each
+    with an `evaluate` before the steps, after 16 and after 20. Fatal unless
+    the two agree bit for bit (params, EMA, Adam moments, the [20, 3] rows,
+    the evaluations) and launch the train kernels alike. With `timed`, the
+    rates in turns (eager, chunk, chunk, eager; CUDA events over 16 steps
+    after the first 20) and one profiled chunk of 16 beside 4 eager steps."""
+    from dhg_torch.eval import evaluate
+    from dhg_torch.tools.profile_sampler import profile_call
+    from dhg_torch.train import Trainer, load_cache
+
+    val = load_cache(cfg, "validation", "cuda")
+    bs = min(TRAIN_B, len(val))
+    runs, trainers = {}, {}
+    for mode in ("eager", "graph"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = trainers[mode] = Trainer(cfg, device="cuda")
+        evals, rows, launches = [evaluate(t.model, val, batch_size=bs, seed=0)], [], {}
+        t0 = time.perf_counter()
+        for first, k in ((1, 16), (17, 4)):
+            reset_all_counts()
+            if mode == "eager":
+                rows += [t.train_step(t.draw(c))[None] for c in range(first, first + k)]
+            else:
+                rows.append(t.train_chunk(first, k))
+            torch.cuda.synchronize()
+            for name, n in kernel_launches().items():
+                launches[name] = launches.get(name, 0) + n
+            evals.append(evaluate(t.model, val, batch_size=bs, seed=0))
+        runs[mode] = dict(rows=torch.cat(rows), evals=evals, launches=launches,
+                          wall_s=time.perf_counter() - t0,
+                          peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+    eager, graph = trainers["eager"], trainers["graph"]
+    if graph.graph is None:
+        fail(f"chunks {label}: no step graph was captured")
+
+    def state(t):
+        o = t.opt
+        return [(f"{group} {name}", x) for group, xs in (
+            ("param", [p.detach() for p in o.params]), ("ema", t.ema or []), ("mu", o.mu),
+            ("nu", o.nu)) for name, x in zip(o.names, xs)]
+
+    differ = [name for (name, a), (_, b) in zip(state(graph), state(eager))
+              if not torch.equal(a, b)]
+    same = {
+        "rows": runs["graph"]["rows"].shape == (TRAIN_STEPS, 3)
+        and torch.equal(runs["graph"]["rows"], runs["eager"]["rows"]),
+        "state": not differ,
+        "evals": all(np.array_equal(a, b) for a, b in zip(runs["graph"]["evals"],
+                                                          runs["eager"]["evals"])),
+        "launches": runs["graph"]["launches"] == runs["eager"]["launches"],
+    }
+    got = runs["graph"]["launches"]
+    # With the flags, 9 attention and 6 conv-block launches a step; a live
+    # dropout closes the conv block's gate (dhg's), so none of those.
+    flags = os.environ.get("DHG_FUSED_ATTENTION") == "1"
+    convs = 0 if cfg.training_args.dropout else 6
+    want = (9 * TRAIN_STEPS, convs * TRAIN_STEPS) if flags else (0, 0)
+    counted = (got.get("fused_attention", 0), got.get("fused_conv_block", 0))
+    out = {"capture_s": graph.graph.capture_s, "replay_launches": graph.graph.launches,
+           "launches": got, **{f"{m}_{k}": runs[m][k] for m in runs
+                               for k in ("wall_s", "peak_gib")},
+           "evals": [list(map(float, e)) for e in runs["graph"]["evals"]]}
+    log(f"  {label}: 20 steps eager {runs['eager']['wall_s']:.2f} s, chunks 16 + 4 "
+        f"{runs['graph']['wall_s']:.2f} s (capture {out['capture_s']:.2f} s); peak above the "
+        f"trainer's start {runs['eager']['peak_gib']:.2f} / {runs['graph']['peak_gib']:.2f} GiB; "
+        f"equal bit for bit: {same}; launches {counted} (want {want}); "
+        f"val losses {[round(e[0], 6) for e in out['evals']]}")
+    if not all(same.values()):
+        fail(f"chunks {label}: the replayed chunk differs from the eager steps: {same}; "
+             f"{len(differ)} state tensors differ, first {differ[:6]}")
+    if counted != want or sum(got.values()) != sum(counted):
+        fail(f"chunks {label}: launches {got}, expected {want}")
+    if not timed:
+        return out
+    count = {"eager": TRAIN_STEPS, "graph": TRAIN_STEPS}
+
+    def sixteen(mode):
+        t, c = trainers[mode], count[mode]
+        count[mode] += 16
+        if mode == "graph":
+            return lambda: t.train_chunk(c + 1, 16)
+        return lambda: [t.train_step(t.draw(i)) for i in range(c + 1, c + 17)]
+
+    rates = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        _, ms = event_ms(sixteen(mode))
+        rates[mode].append(16 / (ms / 1e3))
+    prof = {"graph": profile_call(sixteen("graph"))}
+    c = count["eager"]
+    prof["eager"] = profile_call(lambda: [eager.train_step(eager.draw(i))
+                                          for i in range(c + 1, c + 5)])
+    for mode, r in prof.items():
+        log(f"  {label} {mode}: {', '.join(f'{v:.3f}' for v in rates[mode])} steps/s; "
+            f"profiled {16 if mode == 'graph' else 4} steps: wall {r['wall_ms']:.1f} ms, "
+            f"device {r['device_ms']:.1f} ms, idle share {r['idle_share']:.3f}, "
+            f"{r['n_kernel_launches']} kernels; top "
+            f"{[(k['kernel'][:40], round(k['device_ms'], 2)) for k in r['top'][:3]]}")
+    out.update(rates=rates, profile=prof)
+    return out
+
+
+def dead_graph_case(cfg) -> dict:
+    """Phase 8b's last case: a captured CUDA graph left in a dead reference
+    cycle, freed only by a garbage collection (as a stopped server's graphs
+    are: its handler class refers to it), then a 2-step chunk whose step
+    runs gc.collect() while it is being captured. StepGraph's capture
+    collects the garbage first and holds the collector off until it ends;
+    a graph destroyed inside another's capture would invalidate it. Fatal
+    unless the chunk is captured, its rows are finite and the collector was
+    on for the eager warm-up step and off in the capture."""
+    import gc
+
+    from dhg_torch.train import Trainer
+
+    class Cycle:
+        def __init__(self, graph):
+            self.graph, self.me = graph, self
+
+    x = torch.ones(1024, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x * 2
+    torch.cuda.current_stream().wait_stream(side)
+    dead = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(dead):
+        x * 2
+    Cycle(dead)
+    del dead
+    t = Trainer(cfg, device="cuda")
+    step, seen = t._step, []
+
+    def collecting_step(d):
+        seen.append(gc.isenabled())
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return step(d)
+
+    t._step = collecting_step
+    rows = t.train_chunk(1, 2)
+    torch.cuda.synchronize()
+    ok = t.graph is not None and seen == [True, False] and bool(torch.isfinite(rows).all())
+    log(f"  a dead graph in a reference cycle, gc.collect() inside the capture: chunk "
+        f"captured {t.graph is not None}, collector on in warm-up / capture {seen}, rows "
+        f"finite {bool(torch.isfinite(rows).all())}")
+    if not ok:
+        fail(f"chunks: the step capture beside a dead graph failed (collector {seen})")
+    return {"collector_warm_up_capture": seen, "capture_s": t.graph.capture_s}
+
+
+def chunk_phase(report):
+    """Phase 8b: training_args.steps_per_call on the card (see the module
+    docstring)."""
+    from dhg_torch.config import DLConfig
+    from dhg_torch.tools.profile_train import best_config
+
+    t_phase = time.perf_counter()
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for label in ("plain", "kernels"):
+                set_train_flags(label == "kernels")
+                out[label] = chunk_case(DLConfig(best_config(tmp, 0, TRAIN_B)), label, True)
+            cfg = best_config(tmp, 0, TRAIN_B)
+            cfg["training_args"].update(channels=32, dropout=0.1)
+            set_train_flags(True)
+            out["dropout"] = chunk_case(DLConfig(cfg), "dropout 0.1, channels 32", False)
+            cfg["training_args"].update(dropout=0.0)
+            out["dead_graph"] = dead_graph_case(DLConfig(cfg))
+    finally:
+        set_train_flags(False)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  chunk phase {out['phase_s']:.1f} s")
+    report["chunks"] = out
+    report["train_steps_per_sec_batch96_replayed"] = {
+        label: statistics.mean(out[label]["rates"]["graph"]) for label in ("plain", "kernels")}
+
+
 def kernel_row(name, cases, timed, launches, at):
     """One kernels-line entry: max |diff| over all of the kernel's cases;
     times and bounds summed over `timed` (weighted by launches a step)."""
@@ -2112,15 +2335,36 @@ def main() -> None:
     log(f"  {kind} ({count} visible); nvidia-smi: {smi_line or 'unavailable'}")
     report.update(device=kind, nvidia_smi=smi_line, torch=torch.__version__, cuda=torch.version.cuda)
 
-    log("== build")
+    log("== build, on a background thread beside the serve phase (which runs no kernel)")
     t0 = time.perf_counter()
+    built: dict = {}
+
+    def run_build():
+        try:
+            built["path"] = build.build()
+        except (RuntimeError, OSError) as e:
+            built["error"] = e
+        built["s"] = time.perf_counter() - t0
+
+    build_thread = threading.Thread(target=run_build, daemon=True)
+    build_thread.start()
     try:
-        lib_path = build.build()
+        with tempfile.TemporaryDirectory() as tmp:
+            log("== serve: dhg_torch.serve on a plain 20-step train run's model_final (f32, "
+                "CUDA graphs)")
+            serve_phase(plain_train_run(tmp), tmp, report)
+    finally:
+        build_thread.join()  # no nvcc left running, whatever the serve phase did
+    if "error" in built:
+        fail(f"kernel build failed: {built['error']}")
+    try:
         build.load()
     except (RuntimeError, OSError) as e:
-        fail(f"kernel build failed: {e}")
-    report["build_s"] = time.perf_counter() - t0
-    log(f"  {lib_path.name} in {report['build_s']:.1f} s")
+        fail(f"kernel library failed to load: {e}")
+    report["build_s"] = built["s"]
+    report["build_and_serve_s"] = time.perf_counter() - t0
+    log(f"  build: {built['path'].name} in {report['build_s']:.1f} s; the build and the serve "
+        f"phase beside it {report['build_and_serve_s']:.1f} s")
 
     model = DiffusionModel.from_config({"channels": 128, "att_layers_num": 2},
                                        dtype=torch.bfloat16, device="cuda", seed=0)
@@ -2153,8 +2397,6 @@ def main() -> None:
         train_counts, run = train_phase(report, tmp)
         log("== infer: the CLI on the train run's model_final (f32)")
         infer_phase(run, tmp, report)
-        log("== serve: dhg_torch.serve on the train run's model_final (f32, CUDA graphs)")
-        serve_phase(run, tmp, report)
         log("== iam: a generated IAM tree -> caches -> train -> average -> eval, metrics")
         iam = iam_phase(report, tmp)
         log("== distill: dhg_torch.distill 60 -> 30 from the train run, flags off and on; "
@@ -2170,6 +2412,8 @@ def main() -> None:
         style_phase(iam, tmp, report)
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
+    log("== chunks: steps_per_call's replayed chunks against eager steps, flags off and on")
+    chunk_phase(report)
 
     def timed(name, keep):
         return [r for r in cases if r["kernel"] == name and keep(r)]

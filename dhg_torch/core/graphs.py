@@ -22,15 +22,18 @@ Memory: all of a cache's graphs share one private pool and are replayed
 one at a time. A graph's temporaries may then lie where another graph's
 output lies, so `run` copies each output off the card before the next
 replay; callers must not replay two graphs at once (the serving runtime
-replays on its one batcher thread). Capture uses
-capture_error_mode="thread_local": other threads may run CUDA work
-meanwhile, as long as it is not on the capturing thread.
+replays on its one batcher thread). Every capture goes through `capture`:
+capture_error_mode="thread_local" (other threads may run CUDA work
+meanwhile, as long as it is not on the capturing thread), with Python's
+cyclic garbage collected before and the collector held off until it ends.
 
 CUDA only: on the CPU there is no graph, and callers run `generate`.
 """
 
 from __future__ import annotations
 
+import gc
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +42,27 @@ import torch
 from dhg_torch import resolve_device
 from dhg_torch.core.schedule import N_STEPS
 from dhg_torch.inference import _check_model_device, _sample, beta_table
+
+
+@contextmanager
+def capture(graph: torch.cuda.CUDAGraph, pool=None):
+    """torch.cuda.graph(graph, pool, capture_error_mode="thread_local"),
+    with the cyclic garbage collected first and no collection until the
+    capture ends. A collection inside the capture (automatic, on any thread
+    that runs Python, autograd's included) may free a CUDAGraph that only a
+    collection can free, such as a stopped server's, whose handler class
+    refers to it: destroying a graph while another is being captured is
+    not permitted (PyTorch only warns), and the capture ends in
+    cudaErrorStreamCaptureInvalidated."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 @dataclass
@@ -138,5 +162,5 @@ class SamplerGraphs:
                            entry.noises, self.device)
 
         body()  # eager: builds the caches outside the capture
-        with torch.cuda.graph(entry.graph, pool=self.pool, capture_error_mode="thread_local"):
+        with capture(entry.graph, self.pool):
             entry.out = body()

@@ -16,6 +16,9 @@ safe for the sampler and the train step alike.
 DHG_FUSED_T4 gates the sampler's fused_unet_t4 path, default "0" as in dhg.
 dhg's `rows` packing and DHG_SDPA_BATCHED are TPU lowering choices with
 identical output; they have no counterpart here.
+
+launch_counts / add_launches read and add to the wrappers' launch counts:
+a CUDA graph's replay launches kernels that no wrapper sees.
 """
 
 from __future__ import annotations
@@ -55,3 +58,22 @@ def use_fused_attention(device: torch.device) -> bool:
 def use_fused_conv_block(device: torch.device) -> bool:
     """Route ConvBlocks on `device` through kernels/fused_conv_block.py."""
     return _flag_on("DHG_FUSED_CONVBLOCK", device)
+
+
+def _launch_dicts() -> list[dict]:
+    from dhg_torch.kernels import fused_attention, fused_bottleneck, fused_conv_block
+
+    return [fused_attention.launches, fused_conv_block.launches, fused_bottleneck.launches]
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {k: v for d in _launch_dicts() for k, v in d.items()}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add `counts` (by kernel name) to the wrappers' launch counts: the
+    launches of a CUDA graph's replay, which no wrapper sees."""
+    for d in _launch_dicts():
+        for k in d.keys() & counts.keys():
+            d[k] += counts[k]

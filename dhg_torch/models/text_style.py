@@ -18,7 +18,8 @@ from torch import nn
 
 from dhg_torch.data.tokenizer import VOCAB_SIZE
 from dhg_torch.ops.attention import MultiHeadAttention
-from dhg_torch.ops.basic import FFN, AffineTransformLayer, dropout, layer_norm, reshape_up
+from dhg_torch.ops.basic import (FFN, AffineTransformLayer, Embedding, dropout, layer_norm,
+                                reshape_up)
 
 STYLE_WIDTH = 1280 // 5  # reshape_up(5) of the [B, 14, 1280] style features
 
@@ -28,7 +29,7 @@ class TextStyleEncoder(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.style_ffn = FFN(STYLE_WIDTH, d_ff, d_model, dtype)
-        self.emb = nn.Embedding(VOCAB_SIZE, d_model)
+        self.emb = Embedding(VOCAB_SIZE, d_model)
         self.text_ffn = FFN(d_model, d_model * 2, d_model, dtype)
         self.mha = MultiHeadAttention(d_model, 8, dtype)
         for i in (1, 2, 3, 4):

@@ -46,6 +46,15 @@ class CastCache:
         return slot[1]
 
 
+def clear_cast_caches(model: nn.Module) -> None:
+    """Drop every cached cast of `model`'s modules. A CUDA graph's replay
+    updates the weights in place without bumping their `_version`, so the
+    cache's key cannot see it: whoever replays one calls this after."""
+    for m in model.modules():
+        if isinstance(m, CastCache):
+            m._cast_cache = None
+
+
 class Linear(CastCache, nn.Linear):
     """nn.Linear (weight [out, in]) applied with dhg's Dense rounding."""
 
@@ -61,6 +70,39 @@ class Linear(CastCache, nn.Linear):
         dt = dtype or x.dtype
         w, b = self.cast(dt)
         return torch.matmul(x.to(dt), w.t()) + b
+
+
+class _EmbeddingFn(torch.autograd.Function):
+    """F.embedding forward; the weight's gradient as one product,
+    one_hot(ids)^T @ grad, summed in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        grad = grad.reshape(-1, grad.shape[-1])
+        # A comparison, not F.one_hot, whose range check syncs with the host.
+        rows = torch.arange(ctx.rows, device=ids.device)
+        onehot = (ids.reshape(-1, 1) == rows).to(grad.dtype)
+        return None, onehot.t() @ grad
+
+
+class Embedding(nn.Embedding):
+    """nn.Embedding whose weight gradient is reproducible: CUDA's own
+    embedding backward sums a token's rows in an order that changes from run
+    to run (last bits of the moments of a train step), and a replayed train
+    step is held to the eager one bit for bit. The forward is F.embedding's
+    gather on every path."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            return _EmbeddingFn.apply(ids, self.weight)
+        return F.embedding(ids, self.weight)
 
 
 def layer_norm(x: torch.Tensor, dtype=None, eps: float = 1e-6) -> torch.Tensor:

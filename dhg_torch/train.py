@@ -44,8 +44,22 @@ included, as dhg's loop runs them, with torch.profiler (host operators and,
 on CUDA, kernels; each step a `train_step <N>` span); rank 0 writes the
 Chrome trace into profile_dir after the last of them.
 
-Not in the port yet: training_args.steps_per_call is ignored (dhg scans K
-steps in one TPU program; here each step is its own call, the same math).
+training_args.steps_per_call (dhg's: "auto" or unset is up to 16 steps a
+chunk, an integer that many, 1 the per-step loop) runs dhg's chunk loop:
+each chunk ends at the run's end or before a save or validation boundary,
+a boundary chunk is rounded down to a power of two, and the log lines,
+metrics.jsonl rows, validations, saves and the interrupt latch come at
+chunk ends from the chunk's stacked [k, 3] rows, with dhg's cadence and
+text. A chunk of one step is train_step. On CUDA a longer chunk's steps
+replay one captured CUDA graph of the step (StepGraph) back to back, with
+no host sync between them; each step's draws, learning rate, bias
+corrections and dropout seed are staged on the host before its replay, so
+a replayed step equals the eager one bit for bit. On the CPU a chunk's
+steps run eagerly one after another. Under NCCL the graph captures the
+step's all-reduces too; train() drops it at its end, so that no captured
+collective outlives the group main() then destroys. Under a process group
+whose backend is not NCCL a CUDA chunk takes one step (see
+steps_per_call); profile_dir forces one step a chunk, as in dhg.
 """
 
 from __future__ import annotations
@@ -68,11 +82,13 @@ from dhg_torch import resolve_device
 from dhg_torch.checkpoint import AsyncSaver, load_checkpoint, save_checkpoint
 from dhg_torch.config import DLConfig, config_entrypoint, object_from_dict, parse_cli_kwargs
 from dhg_torch.core.losses import diffusion_loss
+from dhg_torch.core.graphs import capture
 from dhg_torch.core.schedule import alphas_from_draws, get_alpha_set
 from dhg_torch.data.pipeline import (DeviceDataset, augment_matrices, augment_strokes,
                                      gather_batch, synthetic_cache)
 from dhg_torch.models.denoiser import DiffusionModel
-from dhg_torch.ops.basic import dropout_rows
+from dhg_torch.kernels.runtime import add_launches, launch_counts
+from dhg_torch.ops.basic import clear_cast_caches, dropout_rows
 from dhg_torch.parallel import distributed as dist
 from dhg_torch.parallel.mesh import Mesh, make_mesh
 from dhg_torch.parallel.sharding import (gather_state_dict, shard_dim, shard_model,
@@ -137,11 +153,13 @@ def agc_dims(module: nn.Module, p: torch.Tensor) -> tuple[int, ...]:
 
 class Optimizer:
     """dhg's optax chain on a model's parameters, updated in place:
-    clip -> (adam: + wd p) -> Adam moments -> (adamw: + wd p) -> * lr(count)
-    -> p -= update. Every step stays on the device: no host sync. With a
-    model group (tensor parallelism) the norms of clip "norm" and "agc" sum
-    the sharded parameters' squares over the group, so they are the whole
-    model's."""
+    clip -> (adam: + wd p) -> Adam moments -> (adamw: + wd p) -> * -lr(count)
+    -> p += update. `stage` writes a step's learning rate and bias
+    corrections into a device buffer, `update` reads them: every step stays
+    on the device (no host sync), and one CUDA graph of `update` serves
+    every step. With a model group (tensor parallelism) the norms of clip
+    "norm" and "agc" sum the sharded parameters' squares over the group, so
+    they are the whole model's."""
 
     def __init__(self, model: nn.Module, kind: str, schedule, betas=(0.9, 0.999),
                  weight_decay: float = 0.0, clip: float | None = None, clip_mode: str = "norm",
@@ -164,6 +182,8 @@ class Optimizer:
         adam = kind != "sgd"
         self.mu = [torch.zeros_like(p) for p in self.params] if adam else []
         self.nu = [torch.zeros_like(p) for p in self.params] if adam else []
+        # -lr, 1 - b1^count, 1 - b2^count of the next update (see stage).
+        self.scalars = torch.zeros(3, device=self.params[0].device)
 
     @torch.no_grad()
     def _clip(self, grads):
@@ -195,15 +215,33 @@ class Optimizer:
                 clipped = g * (max_norm / g_norm.clamp_min(1e-6))
                 g.copy_(torch.where(g_norm < max_norm, g, clipped))
 
-    @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> None:
         """Apply one update from `grads` (modified in place)."""
+        self.stage()
+        self.update(grads)
+
+    @torch.no_grad()
+    def stage(self) -> None:
+        """Write the next update's -lr(count) and Adam bias corrections
+        into `self.scalars` (computed on the host in float32, as optax does,
+        and filled in on the device without a sync); count += 1."""
+        lr = self.schedule(self.count)
+        self.count += 1
+        b1, b2 = (np.float32(b) for b in self.betas)
+        n = np.float32(self.count)
+        bc1, bc2 = np.float32(1) - b1 ** n, np.float32(1) - b2 ** n
+        for slot, v in zip(self.scalars, (-lr, bc1, bc2)):
+            slot.fill_(float(v))
+
+    @torch.no_grad()
+    def update(self, grads: list[torch.Tensor]) -> None:
+        """The update of `stage`'s scalars from `grads` (modified in place):
+        device work only, so a CUDA graph can capture it."""
         if self.clip is not None:
             self._clip(grads)
         if self.kind == "adam" and self.wd:
             torch._foreach_add_(grads, self.params, alpha=self.wd)
-        lr = self.schedule(self.count)
-        self.count += 1
+        neg_lr, bc1, bc2 = self.scalars
         if self.kind == "sgd":
             updates = grads
         else:
@@ -212,8 +250,6 @@ class Optimizer:
             torch._foreach_add_(self.mu, grads, alpha=1 - b1)
             torch._foreach_mul_(self.nu, b2)
             torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
-            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
-            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
             updates = torch._foreach_div(self.mu, bc1)
             denom = torch._foreach_div(self.nu, bc2)
             torch._foreach_sqrt_(denom)
@@ -221,7 +257,8 @@ class Optimizer:
             torch._foreach_div_(updates, denom)
             if self.kind == "adamw" and self.wd:
                 torch._foreach_add_(updates, self.params, alpha=self.wd)
-        torch._foreach_add_(self.params, updates, alpha=-lr)
+        torch._foreach_mul_(updates, neg_lr)
+        torch._foreach_add_(self.params, updates)
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
@@ -361,6 +398,7 @@ class Trainer:
         self.data: DeviceDataset | None = None
         self.saver = AsyncSaver()
         self._gen = torch.Generator(self.device)
+        self.graph: StepGraph | None = None
 
     def load_dataset(self) -> DeviceDataset:
         """The train cache on the device. With several processes rank 0
@@ -413,6 +451,14 @@ class Trainer:
         """One optimizer update from the global draws `d`, on this rank's
         rows; returns [3] (total, score, pen), the global batch's means, on
         the device."""
+        self.opt.stage()
+        with self._dropout_generator(d.dropout_seed):
+            return self._step(d)
+
+    def _step(self, d: Draws) -> torch.Tensor:
+        """train_step's device work, after its host-side staging (the
+        optimizer's scalars, the dropout seed): no host sync and no host
+        value that changes from step to step, so StepGraph captures it."""
         start = self.mesh.data_index * self.local_batch
         if self.mesh.data_size > 1:
             d = d.rows(slice(start, start + self.local_batch))
@@ -434,20 +480,18 @@ class Trainer:
         # losses and gradients equals the unsplit step when dropout is off.
         n, mb = self.grad_accum, self.local_batch // self.grad_accum
         metrics = torch.zeros(3, device=self.device)
-        with self._dropout_generator(d.dropout_seed):
-            for i in range(n):
-                sl = slice(i * mb, (i + 1) * mb)
-                with dropout_rows(self.model, self.batch_size,
-                                  slice(start + sl.start, start + sl.stop)):
-                    eps_pred, pen_pred = self.model(xt[sl], text[sl], alphas[sl].sqrt(),
-                                                    style[sl])
-                losses = diffusion_loss(d.eps[sl], eps_pred, pen[sl], pen_pred, alphas[sl])
-                (losses[0] / n).backward()
-                metrics += torch.stack(losses).detach()
+        for i in range(n):
+            sl = slice(i * mb, (i + 1) * mb)
+            with dropout_rows(self.model, self.batch_size,
+                              slice(start + sl.start, start + sl.stop)):
+                eps_pred, pen_pred = self.model(xt[sl], text[sl], alphas[sl].sqrt(), style[sl])
+            losses = diffusion_loss(d.eps[sl], eps_pred, pen[sl], pen_pred, alphas[sl])
+            (losses[0] / n).backward()
+            metrics += torch.stack(losses).detach()
         grads = [p.grad for p in self.opt.params]
         if self.mesh.data_group is not None:
             metrics = self._data_mean(grads, metrics)
-        self.opt.step(grads)
+        self.opt.update(grads)
         for p in self.opt.params:
             p.grad = None
         if self.ema is not None:
@@ -455,6 +499,27 @@ class Trainer:
                 torch._foreach_mul_(self.ema, self.ema_decay)
                 torch._foreach_add_(self.ema, self.opt.params, alpha=1.0 - self.ema_decay)
         return metrics / n
+
+    def train_chunk(self, first: int, k: int) -> torch.Tensor:
+        """Steps first .. first + k - 1 (counted from 1) on their draws;
+        returns their [k, 3] rows on the device. On CUDA every step replays
+        one captured graph of the step (StepGraph, captured at the first
+        chunk), with no host sync between the steps; the cast caches are
+        dropped after the chunk (a replay does not bump the weights'
+        versions). On the CPU the steps run one after another through
+        train_step."""
+        counts = range(first, first + k)
+        if self.device.type != "cuda":
+            return torch.stack([self.train_step(self.draw(c)) for c in counts])
+        rows = torch.empty((k, 3), device=self.device)
+        # The device's default generator is reseeded before each step and
+        # restored after the chunk, as train_step restores it.
+        graph = self.graph = self.graph or StepGraph(self)
+        with torch.random.fork_rng(devices=[self.device]):
+            for row, c in zip(rows, counts):
+                graph.run(self.draw(c), row)
+        clear_cast_caches(self.model)
+        return rows
 
     @torch.no_grad()
     def _data_mean(self, grads, metrics) -> torch.Tensor:
@@ -540,32 +605,45 @@ class Trainer:
         # dhg's window: 0 or unset means the default (`or`).
         prof_start, prof_steps = ta.profile_start or 10, ta.profile_steps or 5
         prof = None
+        backend = tdist.get_backend() if tdist.is_initialized() else None
+        k_max = steps_per_call(ta.steps_per_call, self.device, backend, ta.profile_dir, logger)
         count = start
         try:
-            while count < ta.steps:
-                count += 1
-                if ta.profile_dir and main and count == prof_start:
-                    prof = self._start_profile()
-                with (nullcontext() if prof is None
-                      else torch.profiler.record_function(f"train_step {count}")):
-                    window.append(self.train_step(self.draw(count)))
-                if prof is not None and count == prof_start + prof_steps:
-                    self._stop_profile(prof, ta.profile_dir, prof_start, count)
-                    prof = None
-                    logger.info(f"Profiler trace written to {ta.profile_dir}")
+            for k in chunk_sizes(start, ta.steps, k_max, ta.save_freq,
+                                 ta.val_freq if val_cache is not None else None):
+                if k == 1:
+                    count += 1
+                    if ta.profile_dir and main and count == prof_start:
+                        prof = self._start_profile()
+                    with (nullcontext() if prof is None
+                          else torch.profiler.record_function(f"train_step {count}")):
+                        rows = self.train_step(self.draw(count))[None]
+                    if prof is not None and count == prof_start + prof_steps:
+                        self._stop_profile(prof, ta.profile_dir, prof_start, count)
+                        prof = None
+                        logger.info(f"Profiler trace written to {ta.profile_dir}")
+                else:
+                    rows = self.train_chunk(count + 1, k)
+                    count += k
                 if _InterruptFlag.pending:
                     _InterruptFlag.pending = False
                     raise KeyboardInterrupt
                 # The reference's cadence: "Step c+1" after step c, averaged
                 # over the steps since the last line (one fetch per line).
-                if (count + 1) % ta.log_freq == 0:
-                    vals = torch.stack(window).mean(0).tolist()
-                    window = []
-                    el = time.time() - t0
-                    logger.info(f"Step {count + 1} | Loss: {vals[0]:.3f} | Score: {vals[1]:.3f} | "
-                                f"Pen: {vals[2]:.3f} | Time: {el:.3f} sec")
-                    record({"step": count + 1, "loss": vals[0], "score": vals[1],
-                            "pen": vals[2], "time": round(el, 3)})
+                base, j0 = count - k, 0
+                for c in range(base + 1, count + 1):
+                    if (c + 1) % ta.log_freq == 0:
+                        window.append(rows[j0:c - base])
+                        j0 = c - base
+                        vals = torch.cat(window).mean(0).tolist()
+                        window = []
+                        el = time.time() - t0
+                        logger.info(f"Step {c + 1} | Loss: {vals[0]:.3f} | Score: {vals[1]:.3f} | "
+                                    f"Pen: {vals[2]:.3f} | Time: {el:.3f} sec")
+                        record({"step": c + 1, "loss": vals[0], "score": vals[1],
+                                "pen": vals[2], "time": round(el, 3)})
+                if j0 < k:
+                    window.append(rows[j0:])
                 if val_cache is not None and (count + 1) % ta.val_freq == 0:
                     from dhg_torch.eval import evaluate
 
@@ -597,6 +675,9 @@ class Trainer:
             if prof is not None:  # the run ended inside the window: no trace, as in dhg
                 prof.stop()
             self.saver.wait()
+            # Its pool back, and no captured collective left to hold the
+            # process group's communicator when the group is destroyed.
+            self.graph = None
 
     def _start_profile(self) -> torch.profiler.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -615,6 +696,120 @@ class Trainer:
         path = Path(profile_dir) / f"train_steps_{first}-{last}.json"
         path.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(path))
+
+
+class StepGraph:
+    """A trainer's step (Trainer._step) captured as one CUDA graph; `run`
+    takes a step by replaying it, so a chunk's steps need no host sync.
+
+    The first `run` takes its step eagerly, on a side stream, on the static
+    draw buffers the graph then reads: that real step builds everything made
+    lazily (the kernel library, cuBLAS's handles and workspaces, autograd's
+    state) outside the capture, as core/graphs.py does, and the capture goes
+    through its `capture` (no garbage collection inside). The capture that
+    follows launches nothing, so the launch counts the kernel wrappers took
+    while it ran are taken back, and every replay adds them. Before a replay
+    the host copies the step's draws into the buffers, stages the
+    optimizer's scalars (Optimizer.stage) and seeds the device's default
+    generator with the step's dropout seed, whose seed and offset the replay
+    reads. A failure to capture or replay raises: no step falls back to the
+    eager path on a card.
+    """
+
+    def __init__(self, trainer: Trainer):
+        self.trainer = trainer
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.draws: Draws | None = None
+        self.out: torch.Tensor | None = None  # the graph's [3] losses
+        self.launches: dict[str, int] = {}  # kernel launches a replay makes
+        self.capture_s: float | None = None  # host seconds of the capture
+
+    def run(self, d: Draws, row: torch.Tensor) -> None:
+        """Take the step of draws `d`; its [3] losses go to `row` (on the
+        device, in stream order)."""
+        t = self.trainer
+        if self.draws is None:
+            self.draws = Draws(*(None if v is None else v.clone() for v in d[:6]))
+        else:
+            for buf, v in zip(self.draws[:6], d[:6]):
+                if buf is not None:
+                    buf.copy_(v)
+        t.opt.stage()
+        if d.dropout_seed is not None:
+            with torch.cuda.device(t.device):
+                torch.cuda.manual_seed(d.dropout_seed)
+        if self.graph is None:
+            self._warm_up_and_capture(row)
+            return
+        self.graph.replay()
+        add_launches(self.launches)
+        row.copy_(self.out)
+
+    def _warm_up_and_capture(self, row: torch.Tensor) -> None:
+        t = self.trainer
+        current, side = torch.cuda.current_stream(t.device), torch.cuda.Stream(t.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            row.copy_(t._step(self.draws))
+        current.wait_stream(side)
+        before, t0 = launch_counts(), time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with capture(graph):
+            self.out = t._step(self.draws)
+        self.capture_s = time.perf_counter() - t0
+        after = launch_counts()
+        self.launches = {k: v - before[k] for k, v in after.items() if v != before[k]}
+        add_launches({k: -v for k, v in self.launches.items()})
+        self.graph = graph
+
+
+def steps_per_call(value, device, backend: str | None = None, profile_dir=None,
+                   logger=None) -> int:
+    """k_max, the most steps of one chunk, from training_args.steps_per_call
+    (dhg's: "auto" or unset is 16, else max(1, int(value))). profile_dir
+    forces 1, so the trace window lands on step boundaries. On CUDA under a
+    process group whose `backend` is not NCCL (gloo: a CUDA graph cannot
+    capture its collectives) "auto" is 1, said on `logger`, and an integer
+    above 1 raises. On the CPU a chunk's steps run eagerly, under any group."""
+    auto = value in (None, "auto")
+    k_max = 16 if auto else max(1, int(value))
+    if profile_dir:
+        return 1
+    if torch.device(device).type == "cuda" and backend not in (None, "nccl") and k_max > 1:
+        if not auto:
+            raise ValueError(f"training_args.steps_per_call={value}: on CUDA under a {backend} "
+                             "process group a chunk takes 1 step (its collectives cannot be "
+                             "captured in a CUDA graph); use 1, auto or the nccl backend")
+        if logger is not None:
+            logger.info(f"steps_per_call auto is 1 under the {backend} process group "
+                        "(a CUDA graph cannot capture its collectives)")
+        return 1
+    return k_max
+
+
+def _dist(c: int, f: int) -> int:
+    """Steps from count c to the next (count + 1) % f == 0 boundary (dhg's)."""
+    d = (f - (c + 1) % f) % f
+    return d if d else f
+
+
+def chunk_sizes(start: int, steps: int, k_max: int, save_freq: int,
+                val_freq: int | None = None) -> list[int]:
+    """dhg's chunk schedule (dhg/train.py:553-567) from count `start`: each
+    chunk ends at the run's end or before a save (and, with val_freq, a
+    validation) boundary, and a boundary chunk 1 < k < k_max is rounded
+    down to a power of two."""
+    out, count = [], start
+    while count < steps:
+        dists = [steps - count, _dist(count, save_freq)]
+        if val_freq:
+            dists.append(_dist(count, val_freq))
+        k = min(k_max, *dists)
+        if 1 < k < k_max:
+            k = 1 << (k.bit_length() - 1)
+        out.append(k)
+        count += k
+    return out
 
 
 class _InterruptFlag:

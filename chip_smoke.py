@@ -173,6 +173,22 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  each report's keys dhg's plus "backend"; none of the five
                  kernels launched (counts zeroed before the phase, read
                  after); the phase within STYLE_PHASE_S seconds
+  7i. converters — tools/export_torch_checkpoint.py on phase 7's run dir
+                 (model_final's EMA weights, the reference's {meta,
+                 state_dict} container and nothing else); that state_dict
+                 saved bare with DDP's `module.` prefixes and turned back by
+                 tools/convert_torch_checkpoint.py: equal bit for bit; the
+                 infer CLI on the converted file with --config_path (phase
+                 7b's prompt, style PNG and style weights): strokes equal bit
+                 for bit to phase 7b's PNG call; a torchvision-layout
+                 MobileNetV2 `features` trunk (seeded, BatchNorm statistics
+                 drawn) through torch.save and
+                 tools/convert_torchvision_mnv2.py, loaded strictly by
+                 init_style_extractor on the card: its [2, 14, 1280] vectors
+                 against the trunk on the card with the reference pooling
+                 (AvgPool2d(3, 3), AdaptiveAvgPool2d((1, 14))) within rtol
+                 1e-3, atol 1e-4; none of the five kernels launched; the
+                 phase within CONVERT_PHASE_S seconds
   8. train rate — train_steps_per_sec_batch96 with both kernels and with
                  both flags off, in turns (off, on, on, off): CUDA events
                  over 10 steps after one warm-up step
@@ -275,6 +291,7 @@ TOOL_KEYS = {
 STYLE_TRUNK = {"steps": 600, "writers": 128, "per_writer": 16, "batch": 64, "width": 384}
 STYLE_TREE = {"writers": 32, "steps": 100, "batch": 64, "width": 384}
 STYLE_PHASE_S = 120.0
+CONVERT_PHASE_S = 15.0  # phase 7i's time limit (seconds)
 RETRIEVAL_KEYS = {"top1_retrieval", "intra_cos_dist", "inter_cos_dist", "intra_over_inter"}
 STYLE_KEYS = {
     "train_style_trunk": {"out", "final_ce", "final_acc", "backend"},
@@ -1022,7 +1039,10 @@ def infer_phase(run, tmp, report):
         if not ok:
             fail(f"infer ({fmt}): bad output or a bf16 kernel launched ({kernel_launches})")
         outs[fmt] = dict(shape=list(strokes.shape), wall_s=wall)
+        if fmt == "png":
+            png_strokes = strokes
     report["infer"] = outs
+    return style, png_strokes
 
 
 def scribble_png(path, seed):
@@ -2076,6 +2096,166 @@ def style_phase(iam, tmp, report):
         fail(f"style: the phase took {out['phase_s']:.1f} s (limit {STYLE_PHASE_S:.0f} s)")
 
 
+def torchvision_trunk(seed: int) -> torch.nn.Module:
+    """torchvision's mobilenet_v2().features rebuilt with its child names
+    (state_dict keys `features.N...`), in eval mode: torch's init under
+    `seed`, each BatchNorm's weight, bias and running statistics drawn from
+    a numpy RandomState(seed) as U(0.5, 1.5), N(0, 0.1), N(0, 0.2) and
+    U(0.3, 1.3)."""
+    from torch import nn
+
+    from dhg_torch.models.mobilenetv2 import INVERTED_RESIDUAL_SETTINGS
+
+    def conv_bn(cin, cout, k, stride=1, groups=1):
+        return nn.Sequential(nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, groups=groups,
+                                       bias=False), nn.BatchNorm2d(cout), nn.ReLU6(inplace=True))
+
+    class InvertedResidual(nn.Module):
+        def __init__(self, cin, cout, stride, expand):
+            super().__init__()
+            hidden = cin * expand
+            self.use_res = stride == 1 and cin == cout
+            layers = [conv_bn(cin, hidden, 1)] if expand != 1 else []
+            self.conv = nn.Sequential(*layers, conv_bn(hidden, hidden, 3, stride, hidden),
+                                      nn.Conv2d(hidden, cout, 1, bias=False),
+                                      nn.BatchNorm2d(cout))
+
+        def forward(self, x):
+            return x + self.conv(x) if self.use_res else self.conv(x)
+
+    class Features(nn.Module):
+        def __init__(self):
+            super().__init__()
+            feats, cin = [conv_bn(3, 32, 3, 2)], 32
+            for t, c, n, s in INVERTED_RESIDUAL_SETTINGS:
+                for i in range(n):
+                    feats.append(InvertedResidual(cin, c, s if i == 0 else 1, t))
+                    cin = c
+            self.features = nn.Sequential(*feats, conv_bn(cin, 1280, 1))
+
+        def forward(self, x):
+            return self.features(x)
+
+    rng = np.random.RandomState(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = Features().eval()
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(torch.from_numpy(rng.rand(n).astype(np.float32) + 0.5))
+                m.bias.copy_(torch.from_numpy(rng.randn(n).astype(np.float32) * 0.1))
+                m.running_mean.copy_(torch.from_numpy(rng.randn(n).astype(np.float32) * 0.2))
+                m.running_var.copy_(torch.from_numpy(rng.rand(n).astype(np.float32) + 0.3))
+    return net
+
+
+def converters_phase(run, tmp, style_png, infer_strokes, report):
+    """Phase 7i: the three converter CLIs on phase 7's run dir, phase 7b's
+    infer call and a torchvision-layout trunk (see the module docstring)."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from dhg_torch.checkpoint import load_checkpoint
+    from dhg_torch.inference import main as infer_main
+    from dhg_torch.models.style_extractor import init_style_extractor
+    from dhg_torch.tools import convert_torch_checkpoint as ckpt_convert
+    from dhg_torch.tools import convert_torchvision_mnv2 as mnv2
+    from dhg_torch.tools import export_torch_checkpoint as export
+
+    t_phase = time.perf_counter()
+    set_train_flags(False)
+    reset_all_counts()
+    tmp, out = Path(tmp), {}
+
+    def said(main, argv):
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            result = main(argv)
+        log("    " + text.getvalue().strip())
+        return result
+
+    # -- (a) export model_final: the EMA weights in the reference's container ----------
+    t0 = time.perf_counter()
+    exported = tmp / "export.pth"
+    said(export.main, [f"--experiment_path={run}", f"--dst={exported}"])
+    saved = torch.load(exported, map_location="cpu", weights_only=True)
+    ema = load_checkpoint(Path(run) / "model_final")["ema_state_dict"]
+    sd = saved["state_dict"]
+    same = sorted(sd) == sorted(ema) and all(torch.equal(sd[k], ema[k]) for k in ema)
+    if list(saved) != ["meta", "state_dict"] or saved["meta"].get("ema") is not True or not same:
+        fail(f"export: keys {list(saved)}, meta {saved.get('meta')}, EMA weights equal: {same}")
+
+    # -- (b) bare state_dict with DDP's prefixes, converted back -----------------------
+    bare, converted = tmp / "bare_module.pth", tmp / "converted"
+    torch.save({f"module.{k}": v for k, v in sd.items()}, bare)
+    said(ckpt_convert.main, [f"--src={bare}", f"--dst={converted}"])
+    back = load_checkpoint(converted)["state_dict"]
+    if list(back) != list(sd) or not all(torch.equal(back[k], sd[k]) for k in sd):
+        fail("convert_torch_checkpoint: the weights differ from the exported ones")
+    out["checkpoints_s"] = time.perf_counter() - t0
+    log(f"  export -> bare module. -> convert: {len(sd)} tensors equal bit for bit "
+        f"({out['checkpoints_s']:.2f} s)")
+
+    # -- (c) infer on the converted file: phase 7b's strokes ------------------------------
+    t0 = time.perf_counter()
+    weights = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "style_trunk_synth.npz")
+    strokes = infer_main([f"--prompt={INFER_PROMPT}", f"--source={style_png}",
+                          f"--checkpoint_path={converted}",
+                          f"--config_path={Path(run) / 'config.yml'}",
+                          f"--style_weights={weights}", f"--output={tmp / 'infer_converted'}",
+                          "--format=png"])
+    torch.cuda.synchronize()
+    out["infer_s"] = time.perf_counter() - t0
+    equal = strokes.shape == infer_strokes.shape and np.array_equal(strokes, infer_strokes)
+    out["infer_equal"] = bool(equal)
+    if strokes.shape == infer_strokes.shape:
+        out["infer_stroke_mse"] = float(((strokes[:, :2] - infer_strokes[:, :2]) ** 2).mean())
+    log(f"  infer on the converted file: strokes {strokes.shape}, "
+        f"{'equal bit for bit to' if equal else 'DIFFERENT from'} phase 7b's "
+        f"({out['infer_s']:.2f} s)")
+    if not equal:
+        fail(f"infer on the converted checkpoint: strokes {strokes.shape} differ from phase "
+             f"7b's {infer_strokes.shape} (stroke MSE {out.get('infer_stroke_mse')})")
+
+    # -- (d) torchvision-layout MobileNetV2 -> .npz -> init_style_extractor -------------------
+    t0 = time.perf_counter()
+    net = torchvision_trunk(2)
+    torch.save(net.state_dict(), tmp / "mnv2.pth")
+    said(mnv2.main, [f"--src={tmp / 'mnv2.pth'}", f"--dst={tmp / 'mnv2_tv.npz'}"])
+    extractor = init_style_extractor(weights_path=tmp / "mnv2_tv.npz", strict=True, device="cuda")
+    img = torch.from_numpy((np.random.RandomState(2).rand(2, 96, 200) * 255).astype(np.float32))
+    net = net.cuda()
+    with torch.no_grad():
+        ours = extractor(img.cuda()).cpu().numpy()
+        x = (img[:, None].cuda() / 127.5 - 1).repeat(1, 3, 1, 1)
+        x = torch.nn.AdaptiveAvgPool2d((1, 14))(torch.nn.AvgPool2d(3, 3)(net(x)))
+        want = x.squeeze(2).permute(0, 2, 1).cpu().numpy()
+    err = np.abs(ours - want)
+    out["mnv2"] = {"shape": list(ours.shape), "max_abs_err": float(err.max()),
+                   "max_excess": float((err - (1e-4 + 1e-3 * np.abs(want))).max()),
+                   "wall_s": time.perf_counter() - t0}
+    log(f"  convert_torchvision_mnv2 -> init_style_extractor on the card: {ours.shape}, max |diff| "
+        f"{err.max():.3g} against the trunk (bar rtol 1e-3, atol 1e-4; "
+        f"{out['mnv2']['wall_s']:.2f} s)")
+    if ours.shape != (2, 14, 1280) or out["mnv2"]["max_excess"] > 0:
+        fail("convert_torchvision_mnv2: the converted trunk's vectors are off the torchvision "
+             "trunk's")
+
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches over the phase {launches}; converters phase {out['phase_s']:.1f} s")
+    report["converters"] = out
+    if any(launches.values()):
+        fail(f"converters: kernels launched ({launches}); none is on this path")
+    if out["phase_s"] > CONVERT_PHASE_S:
+        fail(f"converters: the phase took {out['phase_s']:.1f} s (limit {CONVERT_PHASE_S:.0f} s)")
+
+
 def train_rate_phase(report):
     from dhg_torch.config import DLConfig
     from dhg_torch.tools.profile_train import best_config
@@ -2396,7 +2576,7 @@ def main() -> None:
         log("== train: dhg_torch.train.main, batch 96, both train-path kernels")
         train_counts, run = train_phase(report, tmp)
         log("== infer: the CLI on the train run's model_final (f32)")
-        infer_phase(run, tmp, report)
+        style_png, infer_strokes = infer_phase(run, tmp, report)
         log("== iam: a generated IAM tree -> caches -> train -> average -> eval, metrics")
         iam = iam_phase(report, tmp)
         log("== distill: dhg_torch.distill 60 -> 30 from the train run, flags off and on; "
@@ -2410,6 +2590,9 @@ def main() -> None:
         log("== style trunk: the random init's scale, train_style_trunk, eval_style_gap, "
             "eval_fsd_sensitivity, eval_style_pathway")
         style_phase(iam, tmp, report)
+        log("== converters: export_torch_checkpoint, convert_torch_checkpoint (bare, module.) "
+            "and infer on its output, convert_torchvision_mnv2 into init_style_extractor")
+        converters_phase(run, tmp, style_png, infer_strokes, report)
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
     log("== chunks: steps_per_call's replayed chunks against eager steps, flags off and on")

@@ -93,7 +93,7 @@ def init_style_extractor(weights_path: str | Path | None = None, seed: int = 0,
             f"MobileNetV2 weights not found at {resolved} — the StyleExtractor "
             "is RANDOM-INITIALIZED and its style vectors will not match the "
             "reference's pretrained features. Convert torchvision weights with "
-            "`python -m dhg.tools.convert_torchvision_mnv2` or pass "
+            "`python -m dhg_torch.tools.convert_torchvision_mnv2` or pass "
             "strict=False knowingly."
         )
         if strict:

@@ -1,5 +1,7 @@
-"""The weight bridge: dhg params or an exported .pth -> the port's state_dict
-(and dhg's StyleExtractor .npz -> the port's, style_state_dict_from_flat).
+"""The weight bridge: dhg params or an exported .pth -> the port's state_dict;
+a reference state_dict (bare, with DDP's `module.` prefixes) -> the keys dhg
+maps, reference_state_dict; dhg's StyleExtractor .npz -> the port's,
+style_state_dict_from_flat.
 
 The port's module names are the reference torch names, the same ones that
 `python -m dhg.tools.export_torch_checkpoint` writes, so one strict
@@ -16,6 +18,7 @@ of that mapping (it must not import dhg):
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 from pathlib import Path
 
@@ -27,55 +30,44 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
-def _lin(out: dict, key: str, tree: dict) -> None:
-    out[f"{key}.weight"] = _t(np.asarray(tree["kernel"], np.float32).T)
-    out[f"{key}.bias"] = _t(tree["bias"])
+def reference_layers(n_att: int) -> list[tuple[str, tuple[str, ...], str]]:
+    """(torch module key, dhg param path, kind) of every layer of the
+    reference model with `n_att` att_layers, in the order dhg's exporter
+    writes them; kind is "lin" (Linear), "conv" (Conv1d) or "emb"."""
+    def ffn(key, path):
+        return [(f"{key}.1", (*path, "fc1"), "lin"), (f"{key}.3", (*path, "fc2"), "lin")]
 
+    def affine(key, path, i):
+        return [(f"{key}.affine{i}.{n}", (*path, f"affine{i}", n), "lin")
+                for n in ("gamma_emb", "beta_emb")]
 
-def _conv(out: dict, key: str, tree: dict) -> None:
-    out[f"{key}.weight"] = _t(np.asarray(tree["kernel"], np.float32).transpose(2, 1, 0))
-    out[f"{key}.bias"] = _t(tree["bias"])
+    def mha(key, path):
+        return [(f"{key}.{n}", (*path, n), "lin") for n in ("wq", "wk", "wv", "dense")]
 
+    def encoder_layer(key, path):
+        return ([(f"{key}.text_dense", (*path, "text_dense"), "lin")]
+                + ffn(f"{key}.ffn", (*path, "ffn"))
+                + mha(f"{key}.mha", (*path, "mha")) + mha(f"{key}.mha2", (*path, "mha2"))
+                + [x for i in range(4) for x in affine(key, path, i)])
 
-def _ffn(out: dict, key: str, tree: dict) -> None:
-    _lin(out, f"{key}.1", tree["fc1"])
-    _lin(out, f"{key}.3", tree["fc2"])
+    def conv_block(name):
+        return ([(f"{name}.{c}", (name, c), "conv") for c in ("conv_skip", "conv1", "conv2")]
+                + [(f"{name}.fc", (name, "fc"), "lin")]
+                + [x for i in (1, 2, 3) for x in affine(name, (name,), i)])
 
-
-def _affine(out: dict, key: str, tree: dict) -> None:
-    _lin(out, f"{key}.gamma_emb", tree["gamma_emb"])
-    _lin(out, f"{key}.beta_emb", tree["beta_emb"])
-
-
-def _mha(out: dict, key: str, tree: dict) -> None:
-    for name in ("wq", "wk", "wv", "dense"):
-        _lin(out, f"{key}.{name}", tree[name])
-
-
-def _encoder_layer(out: dict, key: str, tree: dict) -> None:
-    _lin(out, f"{key}.text_dense", tree["text_dense"])
-    _ffn(out, f"{key}.ffn", tree["ffn"])
-    _mha(out, f"{key}.mha", tree["mha"])
-    _mha(out, f"{key}.mha2", tree["mha2"])
-    for i in range(4):
-        _affine(out, f"{key}.affine{i}", tree[f"affine{i}"])
-
-
-def _conv_block(out: dict, key: str, tree: dict) -> None:
-    for name in ("conv_skip", "conv1", "conv2"):
-        _conv(out, f"{key}.{name}", tree[name])
-    _lin(out, f"{key}.fc", tree["fc"])
-    for i in (1, 2, 3):
-        _affine(out, f"{key}.affine{i}", tree[f"affine{i}"])
-
-
-def _text_style(out: dict, key: str, tree: dict) -> None:
-    out[f"{key}.emb.weight"] = _t(tree["emb"]["embedding"])
-    _ffn(out, f"{key}.style_ffn", tree["style_ffn"])
-    _ffn(out, f"{key}.text_ffn", tree["text_ffn"])
-    _mha(out, f"{key}.mha", tree["mha"])
-    for i in (1, 2, 3, 4):
-        _affine(out, f"{key}.affine{i}", tree[f"affine{i}"])
+    ts, tp = "text_style_model", ("text_style_model",)
+    return (
+        [("input_dense", ("input_dense",), "lin")] + ffn("sigma_ffn", ("sigma_ffn",))
+        + [(f"{ts}.emb", (*tp, "emb"), "emb")] + ffn(f"{ts}.style_ffn", (*tp, "style_ffn"))
+        + ffn(f"{ts}.text_ffn", (*tp, "text_ffn")) + mha(f"{ts}.mha", (*tp, "mha"))
+        + [x for i in (1, 2, 3, 4) for x in affine(ts, tp, i)]
+        + [(name, (name,), "lin") for name in ("att_dense", "output_dense")]
+        + [("pen_lifts_dense.0", ("pen_lifts_dense",), "lin")]
+        + [(f"skip_conv{i}", (f"skip_conv{i}",), "conv") for i in (1, 2, 3)]
+        + [x for name in ("enc1", "enc2", "enc4", "dec1", "dec2", "dec3") for x in conv_block(name)]
+        + [x for name in ("enc3", "enc5") for x in encoder_layer(name, (name,))]
+        + [x for i in range(n_att) for x in encoder_layer(f"att_layers.{i}", (f"att_layers_{i}",))]
+    )
 
 
 def state_dict_from_dhg(params: dict) -> "OrderedDict[str, torch.Tensor]":
@@ -83,21 +75,35 @@ def state_dict_from_dhg(params: dict) -> "OrderedDict[str, torch.Tensor]":
 
     float32 CPU tensors; load with `model.load_state_dict(sd, strict=True)`."""
     out: dict = OrderedDict()
-    _lin(out, "input_dense", params["input_dense"])
-    _ffn(out, "sigma_ffn", params["sigma_ffn"])
-    _text_style(out, "text_style_model", params["text_style_model"])
-    _lin(out, "att_dense", params["att_dense"])
-    _lin(out, "output_dense", params["output_dense"])
-    _lin(out, "pen_lifts_dense.0", params["pen_lifts_dense"])
-    for i in (1, 2, 3):
-        _conv(out, f"skip_conv{i}", params[f"skip_conv{i}"])
-    for name in ("enc1", "enc2", "enc4", "dec1", "dec2", "dec3"):
-        _conv_block(out, name, params[name])
-    for name in ("enc3", "enc5"):
-        _encoder_layer(out, name, params[name])
     n_att = sum(1 for k in params if k.startswith("att_layers_"))
-    for i in range(n_att):
-        _encoder_layer(out, f"att_layers.{i}", params[f"att_layers_{i}"])
+    for key, path, kind in reference_layers(n_att):
+        tree = params
+        for name in path:
+            tree = tree[name]
+        if kind == "emb":
+            out[f"{key}.weight"] = _t(tree["embedding"])
+            continue
+        kernel = np.asarray(tree["kernel"], np.float32)
+        out[f"{key}.weight"] = _t(kernel.T if kind == "lin" else kernel.transpose(2, 1, 0))
+        out[f"{key}.bias"] = _t(tree["bias"])
+    return out
+
+
+def reference_state_dict(sd: dict) -> "OrderedDict[str, torch.Tensor]":
+    """A reference model's state_dict as dhg's convert_state_dict reads it:
+    DDP's `module.` prefixes stripped, the att_layers counted from the
+    `att_layers.<i>.` keys, exactly the keys that dhg maps (any other is
+    dropped) in its exporter's order, as contiguous float32 CPU tensors.
+    Raises KeyError naming the first missing key."""
+    sd = {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
+    n_att = len({m.group(1) for k in sd if (m := re.match(r"att_layers\.(\d+)\.", k))})
+    keys = [f"{key}.{leaf}" for key, _, kind in reference_layers(n_att)
+            for leaf in (("weight",) if kind == "emb" else ("weight", "bias"))]
+    out: dict = OrderedDict()
+    for key in keys:
+        if key not in sd:
+            raise KeyError(f"reference state_dict: missing {key}")
+        out[key] = torch.as_tensor(sd[key]).detach().to("cpu", torch.float32).contiguous()
     return out
 
 

@@ -212,6 +212,23 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  stopped server leaves its graphs) and a garbage collection
                  inside the step's capture: the chunk must be captured,
                  with the collector off during the capture
+  8c. profile  — dhg's train-step profile, tools/profile_train.py::profile
+                 at dhg's defaults (batch 96, steps_per_window 96: 6 chunks
+                 of 16 steps a window; configs/smoke.yml's model, bf16),
+                 flags off, then on with a trace_dir: launch counts zeroed
+                 before each run and read after (with the flags 9 attention
+                 and 6 conv-block launches for each step of the 5 replayed
+                 train windows and the trace window and for each forward of
+                 the 4 replayed forward-only windows; none without); the
+                 report's keys dhg's with mfu_vs_h100_bf16_peak and
+                 "device"; flops_per_step equal in both runs; 0 < fwd_only_ms
+                 < ms_per_step, bwd_plus_update_ms > 0, the MFU in (0, 1],
+                 the HBM fields null; the trace names attention_mma_kernel
+                 and conv_block_kernel. Then, flags off and on, one trainer's
+                 forward-only graph replayed on step 7's draws against the
+                 first row of train_chunk(7, 1) from the same params: within
+                 1e-6 relative (bit for bit expected). The phase within
+                 PROFILE_PHASE_S seconds
 The weights are random (seed 0); depth is the canonical 2 attention layers.
 
 Stdout ends with the kernels line, the nvidia-smi line and, last,
@@ -292,6 +309,14 @@ STYLE_TRUNK = {"steps": 600, "writers": 128, "per_writer": 16, "batch": 64, "wid
 STYLE_TREE = {"writers": 32, "steps": 100, "batch": 64, "width": 384}
 STYLE_PHASE_S = 120.0
 CONVERT_PHASE_S = 15.0  # phase 7i's time limit (seconds)
+PROFILE_PHASE_S = 120.0  # phase 8c's time limit (seconds)
+PROFILE_WINDOW = 96  # phase 8c: profile's steps_per_window (dhg's default)
+# Phase 8c: the keys of profile's report (dhg's, with the MFU key naming the
+# H100's peak, plus "device").
+PROFILE_KEYS = {"batch", "backend", "device", "steps_per_sec", "rate_trials", "ms_per_step",
+                "samples_per_sec", "flops_per_step", "hbm_bytes_per_step", "achieved_tflops",
+                "mfu_vs_h100_bf16_peak", "hbm_bw_gbps", "hbm_bw_util", "fwd_only_steps_per_sec",
+                "fwd_only_ms", "bwd_plus_update_ms", "trace_dir"}
 RETRIEVAL_KEYS = {"top1_retrieval", "intra_cos_dist", "inter_cos_dist", "intra_over_inter"}
 STYLE_KEYS = {
     "train_style_trunk": {"out", "final_ce", "final_acc", "backend"},
@@ -2468,6 +2493,108 @@ def chunk_phase(report):
         label: statistics.mean(out[label]["rates"]["graph"]) for label in ("plain", "kernels")}
 
 
+def same_forward_case(label: str, c: int = 7) -> dict:
+    """Phase 8c's check: one trainer at profile's config, its forward-only
+    graph captured (forward_chunk on step c + 1's draws) and replayed on
+    step c's, then train_chunk(c, 1) from the same params. Fatal unless the
+    replayed forward's [3] losses are within 1e-6 relative of the step's."""
+    from dhg_torch.config import DLConfig
+    from dhg_torch.tools.profile_train import profile_config
+    from dhg_torch.train import Trainer
+
+    t = Trainer(DLConfig(profile_config(TRAIN_B)), device="cuda")
+    try:
+        t.forward_chunk(c + 1, 1)  # the eager warm-up, then the capture
+        fwd = t.forward_chunk(c, 1)[0]  # a replay
+        row = t.train_chunk(c, 1)[0]
+        torch.cuda.synchronize()
+        replayed = t.forward_graph.graph is not None
+    finally:
+        t.graph = t.forward_graph = None
+    err = float((fwd - row).abs().max())
+    rel = err / float(row.abs().max())
+    log(f"  {label}: the replayed forward on step {c}'s draws {fwd.tolist()} against "
+        f"train_chunk's row {row.tolist()}: max |diff| {err:.3g} ({rel:.3g} relative)")
+    if not replayed or not rel <= 1e-6:
+        fail(f"profile {label}: the forward-only graph's losses differ from the step's "
+             f"({rel:.3g} relative)")
+    return {"forward": fwd.tolist(), "step": row.tolist(), "max_abs_diff": err, "rel": rel}
+
+
+def profile_phase(report):
+    """Phase 8c: dhg's train-step profile (see the module docstring)."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from dhg_torch.tools import profile_train as pt
+
+    t_phase = time.perf_counter()
+    steps = -(-PROFILE_WINDOW // pt.CHUNK) * pt.CHUNK
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for label in ("plain", "kernels"):
+                kernels = label == "kernels"
+                set_train_flags(kernels)
+                trace = os.path.join(tmp, "trace") if kernels else None
+                reset_all_counts()
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    r = pt.profile(steps_per_window=PROFILE_WINDOW, trace_dir=trace)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {k: v for k, v in kernel_launches().items() if v}
+                text = buf.getvalue()
+                log("    " + text.strip())
+                # 5 train windows (2 warm-up, 3 timed) and the trace's; 4 forward windows.
+                n = steps * (5 + bool(trace) + 4)
+                want = {"fused_attention": 9 * n, "fused_conv_block": 6 * n} if kernels else {}
+                mfu = r["mfu_vs_h100_bf16_peak"]
+                checks = {
+                    "one JSON line": text.count("\n") == 1 and json.loads(text) == r,
+                    "keys": set(r) == PROFILE_KEYS,
+                    "0 < fwd_only_ms < ms_per_step": 0 < r["fwd_only_ms"] < r["ms_per_step"],
+                    "bwd_plus_update_ms > 0": r["bwd_plus_update_ms"] > 0,
+                    "MFU in (0, 1]": 0 < mfu <= 1,
+                    "HBM fields null": r["hbm_bytes_per_step"] is r["hbm_bw_gbps"]
+                    is r["hbm_bw_util"] is None,
+                    "launches": got == want,
+                    "backend": (r["backend"], r["batch"]) == ("cuda", TRAIN_B),
+                }
+                if trace:
+                    traces = sorted(Path(trace).iterdir())
+                    names = {e.get("name", "") for p in traces
+                             for e in json.loads(p.read_text())["traceEvents"]}
+                    named = {k: any(k in nm for nm in names)
+                             for k in ("attention_mma_kernel", "conv_block_kernel")}
+                    checks["trace names both kernels"] = len(traces) == 1 and all(named.values())
+                    r = dict(r, trace_files=[p.name for p in traces], trace_kernels=named,
+                             trace_mib=sum(p.stat().st_size for p in traces) / 2**20)
+                log(f"  {label}: {wall:.1f} s; launches {got} (want {want}); "
+                    f"trace {r.get('trace_mib', 0):.1f} MiB; {checks}")
+                if not all(checks.values()):
+                    fail(f"profile {label}: failed {[k for k, v in checks.items() if not v]}")
+                out[label] = dict(r, launches=got, wall_s=wall)
+                torch.cuda.empty_cache()
+        if out["plain"]["flops_per_step"] != out["kernels"]["flops_per_step"]:
+            fail(f"profile: flops_per_step {out['plain']['flops_per_step']} with the flags off, "
+                 f"{out['kernels']['flops_per_step']} with them on")
+        for label in ("plain", "kernels"):
+            set_train_flags(label == "kernels")
+            out[f"same_forward_{label}"] = same_forward_case(label)
+            torch.cuda.empty_cache()
+    finally:
+        set_train_flags(False)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  profile phase {out['phase_s']:.1f} s")
+    report["profile"] = out
+    if out["phase_s"] > PROFILE_PHASE_S:
+        fail(f"profile: the phase took {out['phase_s']:.1f} s (limit {PROFILE_PHASE_S:.0f} s)")
+
+
 def kernel_row(name, cases, timed, launches, at):
     """One kernels-line entry: max |diff| over all of the kernel's cases;
     times and bounds summed over `timed` (weighted by launches a step)."""
@@ -2597,6 +2724,8 @@ def main() -> None:
     train_rate_phase(report)
     log("== chunks: steps_per_call's replayed chunks against eager steps, flags off and on")
     chunk_phase(report)
+    log("== profile: dhg's train-step profile (tools/profile_train.py), flags off and on")
+    profile_phase(report)
 
     def timed(name, keep):
         return [r for r in cases if r["kernel"] == name and keep(r)]

@@ -23,7 +23,7 @@ where dhg uses cv2.polylines(LINE_AA), and written by
 dhg_torch.data.images.write_tiff (uncompressed) where dhg's cv2.imwrite
 writes LZW: their pixels differ.
 
-    python -m dhg_torch.tools.gen_iam_scale --root=<dir> [--train_forms=1534]
+    python -m dhg_torch.tools.gen_iam_scale [--root=/tmp/iam_scale] [--train_forms=1534]
         [--val_forms=192] [--lines_per_form=7] [--seed=7]
 """
 
@@ -129,7 +129,7 @@ def _line_image(
 
 
 def main(
-    root: str,
+    root: str = "/tmp/iam_scale",
     train_forms: int = 1534,
     val_forms: int = 192,
     lines_per_form: int = 7,

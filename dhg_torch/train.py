@@ -399,6 +399,7 @@ class Trainer:
         self.saver = AsyncSaver()
         self._gen = torch.Generator(self.device)
         self.graph: StepGraph | None = None
+        self.forward_graph: StepGraph | None = None  # forward_chunk's
 
     def load_dataset(self) -> DeviceDataset:
         """The train cache on the device. With several processes rank 0
@@ -459,6 +460,31 @@ class Trainer:
         """train_step's device work, after its host-side staging (the
         optimizer's scalars, the dropout seed): no host sync and no host
         value that changes from step to step, so StepGraph captures it."""
+        # grad_accum: the same draws in equal micro-batches; the mean of their
+        # losses and gradients equals the unsplit step when dropout is off.
+        n = self.grad_accum
+        metrics = torch.zeros(3, device=self.device)
+        for losses in self._micro_losses(d):
+            (losses[0] / n).backward()
+            metrics += torch.stack(losses).detach()
+        grads = [p.grad for p in self.opt.params]
+        if self.mesh.data_group is not None:
+            metrics = self._data_mean(grads, metrics)
+        self.opt.update(grads)
+        for p in self.opt.params:
+            p.grad = None
+        if self.ema is not None:
+            with torch.no_grad():
+                torch._foreach_mul_(self.ema, self.ema_decay)
+                torch._foreach_add_(self.ema, self.opt.params, alpha=1.0 - self.ema_decay)
+        return metrics / n
+
+    def _micro_losses(self, d: Draws):
+        """The step's forward: this rank's rows of draws `d` gathered,
+        augmented, condition-dropped and noised, then for each of grad_accum
+        micro-batches in turn the model (under the step's dropout rows) and
+        diffusion_loss; yields each micro-batch's (total, score, pen). _step
+        takes each one's backward before the next forward runs."""
         start = self.mesh.data_index * self.local_batch
         if self.mesh.data_size > 1:
             d = d.rows(slice(start, start + self.local_batch))
@@ -475,30 +501,31 @@ class Trainer:
         x, pen = strokes3[..., :2], strokes3[..., 2]
         alphas = alphas_from_draws(d.alpha_idx, d.alpha_u, self.alpha_set)
         xt = alphas.sqrt()[..., None] * x + (1.0 - alphas).sqrt()[..., None] * d.eps
-
-        # grad_accum: the same draws in equal micro-batches; the mean of their
-        # losses and gradients equals the unsplit step when dropout is off.
-        n, mb = self.grad_accum, self.local_batch // self.grad_accum
-        metrics = torch.zeros(3, device=self.device)
-        for i in range(n):
+        mb = self.local_batch // self.grad_accum
+        for i in range(self.grad_accum):
             sl = slice(i * mb, (i + 1) * mb)
             with dropout_rows(self.model, self.batch_size,
                               slice(start + sl.start, start + sl.stop)):
                 eps_pred, pen_pred = self.model(xt[sl], text[sl], alphas[sl].sqrt(), style[sl])
-            losses = diffusion_loss(d.eps[sl], eps_pred, pen[sl], pen_pred, alphas[sl])
-            (losses[0] / n).backward()
-            metrics += torch.stack(losses).detach()
-        grads = [p.grad for p in self.opt.params]
-        if self.mesh.data_group is not None:
-            metrics = self._data_mean(grads, metrics)
-        self.opt.update(grads)
-        for p in self.opt.params:
-            p.grad = None
-        if self.ema is not None:
-            with torch.no_grad():
-                torch._foreach_mul_(self.ema, self.ema_decay)
-                torch._foreach_add_(self.ema, self.opt.params, alpha=1.0 - self.ema_decay)
-        return metrics / n
+            yield diffusion_loss(d.eps[sl], eps_pred, pen[sl], pen_pred, alphas[sl])
+
+    @torch.no_grad()
+    def _forward(self, d: Draws) -> torch.Tensor:
+        """_step's forward alone (no grad, no update, no collective): the
+        [3] losses of this rank's rows of draws `d`, summed as _step sums
+        them. Device work only, so StepGraph captures it too."""
+        metrics = torch.zeros(3, device=self.device)
+        for losses in self._micro_losses(d):
+            metrics += torch.stack(losses)
+        return metrics / self.grad_accum
+
+    def forward_step(self, d: Draws) -> torch.Tensor:
+        """train_step's forward alone on draws `d`, at the current params
+        and with the step's dropout seed: no gradient and no update. Returns
+        [3] (total, score, pen), equal to the row train_step(d) returns from
+        the same params (on one rank)."""
+        with self._dropout_generator(d.dropout_seed):
+            return self._forward(d)
 
     def train_chunk(self, first: int, k: int) -> torch.Tensor:
         """Steps first .. first + k - 1 (counted from 1) on their draws;
@@ -519,6 +546,22 @@ class Trainer:
             for row, c in zip(rows, counts):
                 graph.run(self.draw(c), row)
         clear_cast_caches(self.model)
+        return rows
+
+    def forward_chunk(self, first: int, k: int) -> torch.Tensor:
+        """forward_step on the draws of steps first .. first + k - 1, at
+        fixed params; returns their [k, 3] rows on the device. On CUDA every
+        forward replays one captured graph of the step's forward
+        (StepGraph(forward_only=True), captured at the first call); on the
+        CPU the forwards run one after another."""
+        counts = range(first, first + k)
+        if self.device.type != "cuda":
+            return torch.stack([self.forward_step(self.draw(c)) for c in counts])
+        rows = torch.empty((k, 3), device=self.device)
+        graph = self.forward_graph = self.forward_graph or StepGraph(self, forward_only=True)
+        with torch.random.fork_rng(devices=[self.device]):
+            for row, c in zip(rows, counts):
+                graph.run(self.draw(c), row)
         return rows
 
     @torch.no_grad()
@@ -701,6 +744,9 @@ class Trainer:
 class StepGraph:
     """A trainer's step (Trainer._step) captured as one CUDA graph; `run`
     takes a step by replaying it, so a chunk's steps need no host sync.
+    With forward_only the graph holds the step's forward alone
+    (Trainer._forward: no grad, no update), and `run` stages no optimizer
+    scalars.
 
     The first `run` takes its step eagerly, on a side stream, on the static
     draw buffers the graph then reads: that real step builds everything made
@@ -712,12 +758,16 @@ class StepGraph:
     the host copies the step's draws into the buffers, stages the
     optimizer's scalars (Optimizer.stage) and seeds the device's default
     generator with the step's dropout seed, whose seed and offset the replay
-    reads. A failure to capture or replay raises: no step falls back to the
-    eager path on a card.
+    reads. A forward-only capture starts with the cast caches empty, so the
+    weights' casts, which a no-grad forward caches, are made inside the
+    graph and every replay reads the params as they are. A failure to
+    capture or replay raises: no step falls back to the eager path on a
+    card.
     """
 
-    def __init__(self, trainer: Trainer):
+    def __init__(self, trainer: Trainer, forward_only: bool = False):
         self.trainer = trainer
+        self.forward_only = forward_only
         self.graph: torch.cuda.CUDAGraph | None = None
         self.draws: Draws | None = None
         self.out: torch.Tensor | None = None  # the graph's [3] losses
@@ -734,7 +784,8 @@ class StepGraph:
             for buf, v in zip(self.draws[:6], d[:6]):
                 if buf is not None:
                     buf.copy_(v)
-        t.opt.stage()
+        if not self.forward_only:
+            t.opt.stage()
         if d.dropout_seed is not None:
             with torch.cuda.device(t.device):
                 torch.cuda.manual_seed(d.dropout_seed)
@@ -747,16 +798,19 @@ class StepGraph:
 
     def _warm_up_and_capture(self, row: torch.Tensor) -> None:
         t = self.trainer
+        body = t._forward if self.forward_only else t._step
         current, side = torch.cuda.current_stream(t.device), torch.cuda.Stream(t.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            row.copy_(t._step(self.draws))
+            row.copy_(body(self.draws))
         current.wait_stream(side)
+        clear_cast_caches(t.model)
         before, t0 = launch_counts(), time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with capture(graph):
-            self.out = t._step(self.draws)
+            self.out = body(self.draws)
         self.capture_s = time.perf_counter() - t0
+        clear_cast_caches(t.model)  # casts the capture cached live in the graph's pool
         after = launch_counts()
         self.launches = {k: v - before[k] for k, v in after.items() if v != before[k]}
         add_launches({k: -v for k, v in self.launches.items()})

@@ -18,7 +18,8 @@ from dhg_torch.distill import Distiller
 from dhg_torch.distill import main as distill_main
 from dhg_torch.tools import (bench_hoist, eval_encoder_reuse, eval_fewer_steps,
                              eval_fsd_sensitivity, eval_parallel_sampler, eval_style_gap,
-                             eval_style_pathway, profile_stages, sweep, train_style_trunk)
+                             eval_style_pathway, profile_stages, profile_train, sweep,
+                             train_style_trunk)
 from dhg_torch.tools.probe_distill import main as probe_main
 from dhg_torch.train import Trainer, main
 
@@ -98,6 +99,11 @@ def test_entry_points_refuse_the_cpu_by_default(no_cuda, tmp_path):
             tool.main(argv)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate(model, text, style, seq_len=16, n_steps=2, hoist="full", encoder_reuse=2)
+    # dhg's train-step profile, as a function and as the CLI with dhg's flags.
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_train.profile(steps_per_window=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_train.main(["--batch=4", "--steps_per_window=16"])
 
 
 @pytest.mark.parametrize("tool,argv", [

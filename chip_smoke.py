@@ -54,12 +54,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  line [16 tokens + 8, 3]. Then the same with DHG_FUSED_T4=1:
                  60 fused_unet_t4 launches and none of the other two, at
                  batch 96 and 1
-  5b. launches — profile_sampler.py's 10-step generate at batch 1 and 96,
-                 DHG_FUSED_T4 off and on: launches, device time, idle share
+  5c. sampler graphs — on a model of its own (every key unseen): generate
+                 three times on one key (the eager call, the capture, a
+                 replay) at batch 1, 96 and 256 (seq_len 392), 8 padded to
+                 seq_len 808 (the spilled bottleneck), 1 and 96 with
+                 DHG_FUSED_T4=1, and at batch 8 guided (1.5, 1.5, then 3.0:
+                 one graph), hoist "full", encoder_reuse=2, sample_seeds and
+                 DDIM on the halved 30-step schedule. The third call equals
+                 `_sample` on the same generator seed bit for bit
+                 (torch.equal) and leaves the generator in the same state;
+                 its launches equal the eager call's (60 bottleneck + 120
+                 encoder-layer at 96, 60 T4 and no other with the flag); one
+                 capture a key; each call's host ms, the capture's seconds,
+                 its peak memory and the pool's size logged. Then
+                 DHG_FUSED_T4 off, on, off at batch 96 (each call equal to
+                 its own path's eager call, no capture), and a weight
+                 changed in place after the capture (the replay reads it)
+                 and one whose storage is replaced (captured again)
+  5b. launches — profile_sampler.py's 10-step generate at batch 1, 96 and
+                 256, DHG_FUSED_T4 off and on, replayed and eager
+                 (`_sample`): launches, device time, idle share
   6. timings   — denoise steps/s at batch 256 and at batch 96 (where both
                  sampler kernels run) and p50 line latency at batch 1, with
                  DHG_FUSED_T4 off and on in the order off, on, on, off at
-                 each batch, every call reported
+                 each batch, every call reported: generate replayed (two
+                 warm-up calls a key), then the eager `_sample`
   7. train     — the training path: dhg_torch.train.main from a config dict
                  (tools/profile_train.py::best_config, configs/best.yml's model
                  and batch: channels 128, 2 layers, batch 96, T 480, bf16;
@@ -231,7 +250,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  PROFILE_PHASE_S seconds
 The weights are random (seed 0); depth is the canonical 2 attention layers.
 
-Stdout ends with the kernels line, the nvidia-smi line and, last,
+The kernels line counts the sampler kernels' launches from phase 5c's
+replays at batch 96. Stdout ends with the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -656,21 +676,22 @@ def region_phase(model, report):
 
 
 def launch_profile_phase(model, report):
-    """profile_sampler.py's 10-step generate at batch 1 and 96, DHG_FUSED_T4
-    off and on: kernel launches, device time and idle share of the call."""
+    """profile_sampler.py's 10-step generate at batch 1, 96 and 256,
+    DHG_FUSED_T4 off and on, replayed and eager (`_sample`): kernel
+    launches, device time and idle share of the call."""
     from dhg_torch.tools.profile_sampler import profile_batch
 
+    keys = ("wall_ms", "device_ms", "idle_share", "n_kernel_launches")
     out = {}
     for flag in ("0", "1"):
         with env_flag("DHG_FUSED_T4", flag):
-            for batch in (1, 96):
+            for batch in (1, 96, 256):
                 r = profile_batch(model, batch, 10, None)
-                out[f"b{batch}_t4_{flag}"] = {k: r[k] for k in
-                                              ("wall_ms", "device_ms", "idle_share",
-                                               "n_kernel_launches")}
-                log(f"  B={batch} DHG_FUSED_T4={flag}: {r['n_kernel_launches']} launches, "
-                    f"device {r['device_ms']:.2f} ms, wall {r['wall_ms']:.1f} ms, idle "
-                    f"{r['idle_share']:.3f}")
+                for kind, f in (("replay", r), ("eager", r["eager"])):
+                    out[f"b{batch}_t4_{flag}_{kind}"] = {k: f[k] for k in keys}
+                    log(f"  B={batch} DHG_FUSED_T4={flag} {kind}: {f['n_kernel_launches']} "
+                        f"launches, device {f['device_ms']:.2f} ms, wall {f['wall_ms']:.1f} ms, "
+                        f"idle {f['idle_share']:.3f}")
     report["t4_launch_profile"] = out
 
 
@@ -721,18 +742,191 @@ def t4_generate_phase(model, report):
     return counts
 
 
+def pool_bytes(pool) -> int | None:
+    """Bytes of the segments the caching allocator holds in the private
+    pool `pool`, or None where its snapshot names no pool."""
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def eager_sample(model, text, style, seq_len, seed, guidance=None, diffusion_mode="new",
+                 n_steps=None, schedule="strided", hoist=None, encoder_reuse=None,
+                 sample_seeds=None):
+    """(strokes, generator): `_sample`, generate's eager body, on the draws
+    of a generator seeded `seed` (or of sample_seeds' streams)."""
+    from dhg_torch.core.sampling import per_sample_noise_streams
+    from dhg_torch.inference import _sample, beta_table
+
+    n = N_STEPS if n_steps is None else n_steps
+    gen, x, z = None, None, None
+    if sample_seeds is not None:
+        x, z = per_sample_noise_streams(sample_seeds, n, seq_len, "cuda")
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.inference_mode():
+        out = _sample(model, text, style, gen, seq_len, beta_table(n, schedule, "cuda"),
+                      diffusion_mode, guidance, 1.0, x, z, torch.device("cuda"),
+                      hoist or "compact", encoder_reuse)
+    return out, gen
+
+
+# Phase 5c: (label, batch, seq_len, DHG_FUSED_T4, guidance of the three calls,
+# generate's other arguments, launches of the replay).
+GRAPH_CASES = [
+    ("B=1", 1, SEQ_LEN, "0", None, {}, (60, 0, 0)),
+    ("B=96", 96, SEQ_LEN, "0", None, {}, (60, 120, 0)),
+    ("B=256", 256, SEQ_LEN, "0", None, {}, (60, 0, 0)),
+    ("B=8 seq_len 808", 8, LONG_SEQ, "0", None, {}, (60, 120, 0)),
+    ("B=1 T4", 1, SEQ_LEN, "1", None, {}, (0, 0, 60)),
+    ("B=96 T4", 96, SEQ_LEN, "1", None, {}, (0, 0, 60)),
+    ("B=8 guided 1.5, 1.5, 3.0", 8, SEQ_LEN, "0", (1.5, 1.5, 3.0), {}, (120, 240, 0)),
+    ("B=8 hoist full", 8, SEQ_LEN, "0", None, {"hoist": "full"}, (60, 120, 0)),
+    ("B=8 encoder_reuse 2", 8, SEQ_LEN, "0", None, {"encoder_reuse": 2}, (60, 60, 0)),
+    ("B=8 sample_seeds", 8, SEQ_LEN, "0", None, {"sample_seeds": list(range(100, 108))},
+     (60, 120, 0)),
+    ("B=8 ddim halved 30", 8, SEQ_LEN, "0", None,
+     {"diffusion_mode": "ddim", "n_steps": 30, "schedule": "halved"}, (30, 60, 0)),
+]
+
+
+def graphs_phase(report):
+    """Phase 5c, on a model of its own (the canonical one, seed 0, bf16),
+    so that every key starts unseen: generate on one key three times (the
+    eager call, the capture, a replay) at each of GRAPH_CASES, the third
+    call against `_sample` on the same draws (bit for bit, the generator
+    left in the same state, the same launches); then DHG_FUSED_T4 toggled
+    at one shape, and a weight changed in place and one replaced after the
+    capture."""
+    from dhg_torch.core.graphs import SamplerGraphs
+    from dhg_torch.inference import generate, sampler_graphs
+    from dhg_torch.models.denoiser import DiffusionModel
+
+    model = DiffusionModel.from_config({"channels": 128, "att_layers_num": 2},
+                                       dtype=torch.bfloat16, device="cuda", seed=0)
+    graphs = sampler_graphs(model, "cuda")
+    t_phase = time.perf_counter()
+    rows = {}
+
+    def call(text, style, seq_len, seed, guidance, kw):
+        gen = None if "sample_seeds" in kw else torch.Generator(device="cuda").manual_seed(seed)
+        return generate(model, text, style, gen, seq_len=seq_len, guidance_scale=guidance,
+                        device="cuda", **kw), gen
+
+    def check(label, got, gen, want, want_gen):
+        if not torch.equal(got, want):
+            fail(f"sampler graphs {label}: the replay differs from the eager _sample "
+                 f"(max |diff| {float((got - want).abs().max()):.3g})")
+        if gen is not None and not torch.equal(gen.get_state(), want_gen.get_state()):
+            fail(f"sampler graphs {label}: the generator's state differs from the eager call's")
+
+    for label, batch, seq_len, flag, guidance, kw, expected in GRAPH_CASES:
+        _, text, style = make_inputs(batch, seed=70 + batch, long_first=seq_len == LONG_SEQ)
+        scales = guidance or (None, None, None)
+        with env_flag("DHG_FUSED_T4", flag):
+            key = SamplerGraphs.key(batch, seq_len, kw.get("diffusion_mode", "new"), scales[0],
+                                    kw.get("n_steps"), kw.get("schedule", "strided"), None,
+                                    kw.get("hoist"), kw.get("encoder_reuse"))
+            captures, ms = graphs.captures, []
+            for i, g in enumerate(scales):
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                (got, gen), launches = counted_run(lambda: call(text, style, seq_len, 9, g, kw))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 1:
+                    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            (want, want_gen), eager_launches = counted_run(lambda: eager_sample(
+                model, text, style, seq_len, 9, scales[2], **kw))
+        check(label, got, gen, want, want_gen)
+        info, n_captures = graphs.info(key), graphs.captures - captures
+        if info is None or n_captures != 1:
+            fail(f"sampler graphs {label}: {n_captures} captures of the key (expected 1)")
+        if launches != eager_launches or launches != expected:
+            fail(f"sampler graphs {label}: launches {launches} replayed, {eager_launches} "
+                 f"eager, expected {expected}")
+        pool = pool_bytes(graphs.pool)
+        rows[label] = {"launches": launches, "call_ms": ms, "capture_s": info["capture_s"],
+                       "captures": n_captures, "capture_peak_gib": peak,
+                       "pool_gib": None if pool is None else pool / 2**30}
+        log(f"  {label}: replay equals eager bit for bit; launches {launches}; calls "
+            f"(eager, capture, replay) {ms[0]:.1f} / {ms[1]:.1f} / {ms[2]:.1f} ms host; capture "
+            f"{info['capture_s']:.3f} s, its peak {peak:.3f} GiB over the call's start; pool "
+            f"{'n/a' if pool is None else f'{pool / 2**30:.3f} GiB'}")
+        del text, style, got, want
+
+    # DHG_FUSED_T4 off, on, off at B = 96 (both graphs captured above).
+    _, text, style = make_inputs(96, seed=70 + 96)
+    captures, modes, eager = graphs.captures, [], {}
+    for flag, expected in (("0", (60, 120, 0)), ("1", (0, 0, 60)), ("0", (60, 120, 0))):
+        with env_flag("DHG_FUSED_T4", flag):
+            (got, gen), launches = counted_run(lambda: call(text, style, SEQ_LEN, 9, None, {}))
+            if flag not in eager:  # the same inputs and path: one eager call a mode
+                eager[flag] = eager_sample(model, text, style, SEQ_LEN, 9)
+            check(f"DHG_FUSED_T4={flag}", got, gen, *eager[flag])
+        if launches != expected:
+            fail(f"sampler graphs DHG_FUSED_T4={flag}: launches {launches}, expected {expected}")
+        modes.append(launches)
+    if graphs.captures != captures:
+        fail(f"sampler graphs: toggling DHG_FUSED_T4 captured {graphs.captures - captures} "
+             "graphs (each mode's was captured once before)")
+    log(f"  DHG_FUSED_T4 off, on, off at B=96: launches {modes}, each equal to its own path's "
+        "eager call, no new capture")
+
+    # A weight changed in place after the capture, then replaced (B = 1): last,
+    # since a replaced weight leaves every graph of the model to be captured again.
+    _, text, style = make_inputs(1, seed=71)
+    weight = model.att_dense.weight  # read through the bottleneck kernel's tiles
+    saved, captures = weight.detach().clone(), graphs.captures
+    before, _ = call(text, style, SEQ_LEN, 9, None, {})
+    with torch.no_grad():
+        weight.add_(1e-3)
+    got, gen = call(text, style, SEQ_LEN, 9, None, {})
+    changed = eager_sample(model, text, style, SEQ_LEN, 9)
+    check("after an in-place weight change", got, gen, *changed)
+    if torch.equal(got, before) or graphs.captures != captures:
+        fail("sampler graphs: the replay did not read the changed weight, or captured again")
+    weight.data = weight.data.clone()  # the same values in new storage
+    got, gen = call(text, style, SEQ_LEN, 9, None, {})
+    check("after a weight's storage was replaced", got, gen, *changed)
+    if graphs.captures != captures + 1:
+        fail("sampler graphs: replaced weight storage was not captured again")
+    with torch.no_grad():
+        weight.data = saved
+    log("  weights: an in-place change read by the next replay, replaced storage captured "
+        "again; both equal eager bit for bit")
+    report["sampler_graphs"] = {"cases": rows, "captures": graphs.captures,
+                                "phase_s": time.perf_counter() - t_phase}
+    log(f"  {graphs.captures} graphs captured; phase {report['sampler_graphs']['phase_s']:.1f} s")
+    return {label: r["launches"] for label, r in rows.items()}
+
+
 def timing_phase(model, report):
     """denoise steps/s at batch 256 and 96 and the p50 line latency at batch
-    1, with DHG_FUSED_T4 off (the default) and on. Each batch is warmed on
-    both sides, then timed in the order off, on, on, off (one call a side at
-    256 and 96, four at 1), so a host that drifts through the run weighs on
-    both sides alike; every call is reported."""
-    from dhg_torch.inference import generate
+    1, with DHG_FUSED_T4 off (the default) and on: `generate` as a user
+    calls it, replaying its graph after two warm-up calls a key (the eager
+    call and the capture), and its eager body `_sample` on the same inputs.
+    Each batch is timed in the order off, on, on, off (replayed: one call a
+    side at 256 and 96, four at 1; eager: one a side, two at 1), so a host
+    that drifts through the run weighs on both sides alike; every call is
+    reported."""
+    from dhg_torch.inference import _sample, beta_table, generate
 
-    def run(batch, seed):
+    def runs(batch, seed):
         _, text, style = make_inputs(batch, seed)
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        return lambda: generate(model, text, style, gen, seq_len=SEQ_LEN, device="cuda")
+        beta = beta_table(N_STEPS, "strided", "cuda")
+
+        def eager():
+            with torch.inference_mode():
+                return _sample(model, text, style, gen, SEQ_LEN, beta, "new", None, 1.0, None,
+                               None, torch.device("cuda"))
+
+        return {"replay": lambda: generate(model, text, style, gen, seq_len=SEQ_LEN,
+                                           device="cuda"),
+                "eager": eager}
 
     def call_ms(fn):
         start = torch.cuda.Event(enable_timing=True)
@@ -746,34 +940,40 @@ def timing_phase(model, report):
 
     order = ("0", "1", "1", "0")
     calls = {}
-    for batch, seed, per_side in ((256, 5, 1), (96, 7, 1), (1, 6, 4)):
-        fn = run(batch, seed)
+    for batch, seed, per_side in ((256, 5, (1, 1)), (96, 7, (1, 1)), (1, 6, (4, 2))):
+        fns = runs(batch, seed)
         for flag in ("0", "1"):
             with env_flag("DHG_FUSED_T4", flag):
-                fn()
-        seq = []
-        for flag in order:
-            with env_flag("DHG_FUSED_T4", flag):
-                seq += [(flag, call_ms(fn)) for _ in range(per_side)]
-        calls[batch] = seq
-        log(f"  B={batch} ms per 60-step call in turn (flag off/on): "
-            + ", ".join(f"{'on' if f == '1' else 'off'} {ms:.1f}" for f, ms in seq))
-    report["t4_timing_calls"] = {str(k): v for k, v in calls.items()}
-    for flag in ("0", "1"):
-        def ms(batch):
-            return [m for f, m in calls[batch] if f == flag]
+                fns["replay"]()
+                fns["replay"]()
+        for kind, n in zip(("replay", "eager"), per_side):
+            seq = []
+            for flag in order:
+                with env_flag("DHG_FUSED_T4", flag):
+                    seq += [(flag, call_ms(fns[kind])) for _ in range(n)]
+            calls[f"{batch} {kind}"] = seq
+            log(f"  B={batch} {kind} ms per 60-step call in turn (flag off/on): "
+                + ", ".join(f"{'on' if f == '1' else 'off'} {ms:.1f}" for f, ms in seq))
+    report["t4_timing_calls"] = calls
+    for kind in ("replay", "eager"):
+        for flag in ("0", "1"):
+            def ms(batch):
+                return [m for f, m in calls[f"{batch} {kind}"] if f == flag]
 
-        ms256, ms96 = statistics.mean(ms(256)), statistics.mean(ms(96))
-        lat = [m / 1e3 for m in ms(1)]
-        p50 = statistics.median(lat)
-        steps256, steps96 = 256 * N_STEPS / (ms256 / 1e3), 96 * N_STEPS / (ms96 / 1e3)
-        log(f"  DHG_FUSED_T4={flag}: batch 256 {ms256:.1f} ms per 60-step call (mean of 2) -> "
-            f"{steps256:.1f} denoise steps/s; batch 96 {ms96:.1f} ms -> {steps96:.1f} steps/s; "
-            f"batch 1 p50 line latency {p50 * 1e3:.2f} ms ({len(lat)} calls)")
-        tag = "" if flag == "0" else "_t4"
-        report.update({f"denoise_steps_per_sec_b256{tag}": steps256, f"ms_per_call_b256{tag}": ms256,
-                       f"denoise_steps_per_sec_b96{tag}": steps96, f"ms_per_call_b96{tag}": ms96,
-                       f"p50_line_latency_s_b1{tag}": p50, f"line_latencies_s_b1{tag}": lat})
+            ms256, ms96 = statistics.mean(ms(256)), statistics.mean(ms(96))
+            lat = [m / 1e3 for m in ms(1)]
+            p50 = statistics.median(lat)
+            steps256, steps96 = 256 * N_STEPS / (ms256 / 1e3), 96 * N_STEPS / (ms96 / 1e3)
+            log(f"  {kind} DHG_FUSED_T4={flag}: batch 256 {ms256:.1f} ms per 60-step call (mean "
+                f"of 2) -> {steps256:.1f} denoise steps/s; batch 96 {ms96:.1f} ms -> "
+                f"{steps96:.1f} steps/s; batch 1 p50 line latency {p50 * 1e3:.2f} ms "
+                f"({len(lat)} calls)")
+            tag = ("" if kind == "replay" else "_eager") + ("" if flag == "0" else "_t4")
+            report.update({f"denoise_steps_per_sec_b256{tag}": steps256,
+                           f"ms_per_call_b256{tag}": ms256,
+                           f"denoise_steps_per_sec_b96{tag}": steps96,
+                           f"ms_per_call_b96{tag}": ms96,
+                           f"p50_line_latency_s_b1{tag}": p50, f"line_latencies_s_b1{tag}": lat})
 
 
 def roofline(flops, bytes_, peak):
@@ -1835,6 +2035,7 @@ def optin_phase(run, tmp, report):
         if not equal and not mse <= 1e-3:
             fail(f"full hoist B={batch}: stroke MSE {mse} against compact")
         ms = {"compact": [], "full": []}
+        compact(), full()  # the captures: every timed call below replays
         for name in ("compact", "full", "full", "compact"):
             ms[name].append(event_ms(compact if name == "compact" else full)[1])
         log(f"  B={batch} ms per 60-step call (compact, full, full, compact): "
@@ -1882,6 +2083,7 @@ def optin_phase(run, tmp, report):
     with env_flag("DHG_FUSED_T4", "1"):
         _, got = counted_run(fns[2])
     check_launches("encoder_reuse=2 B=96, DHG_FUSED_T4=1 (no T4 under reuse)", got, (60, 60, 0))
+    fns[2](), fns[3]()  # the captures (k = 1 is the compact key, captured above)
     order = (1, 2, 3, 3, 2, 1)
     ms = {k: [] for k in (1, 2, 3)}
     for k in order:
@@ -2691,8 +2893,11 @@ def main() -> None:
     log("== backward of the autograd.Functions against the plain backward")
     gradient_phase(report)
     log("== sampler: sample_lines -> generate")
-    counts = generate_phase(model, report)
-    t4_counts = t4_generate_phase(model, report)
+    generate_phase(model, report)
+    t4_generate_phase(model, report)
+    log("== sampler graphs: generate's eager call, capture and replay against _sample")
+    replayed = graphs_phase(report)
+    torch.cuda.empty_cache()
     log("== launches of a 10-step generate (profile_sampler.py), DHG_FUSED_T4 off and on")
     launch_profile_phase(model, report)
     log("== timings (DHG_FUSED_T4 off, on, on, off at each batch)")
@@ -2733,17 +2938,17 @@ def main() -> None:
     kernels = [
         kernel_row("fused_bottleneck", cases,
                    timed("fused_bottleneck", lambda r: r["case"].endswith("B=96")),
-                   counts[96][0], "bottleneck B=96"),
+                   replayed["B=96"][0], "bottleneck B=96"),
         kernel_row("fused_encoder_layer", cases,
                    timed("fused_encoder_layer", lambda r: r["case"] in ("enc3 B=96", "enc5 B=96")),
-                   counts[96][1], "enc3 + enc5 B=96 (one launch of each a step)"),
+                   replayed["B=96"][1], "enc3 + enc5 B=96 (one launch of each a step)"),
         kernel_row("fused_attention", cases, timed("fused_attention", lambda r: True),
                    train_counts[0], "sum over one training forward's 9 calls, B=96, T=480"),
         kernel_row("fused_conv_block", cases, timed("fused_conv_block", lambda r: r["per_step"]),
                    train_counts[1], "sum over one training forward's 6 blocks, bf16, B=96, T=480"),
         kernel_row("fused_unet_t4", cases,
                    timed("fused_unet_t4", lambda r: r["case"] == "T4 region B=96"),
-                   t4_counts[96][0], "T4 region B=96"),
+                   replayed["B=96 T4"][2], "T4 region B=96"),
     ]
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_script

@@ -1,40 +1,61 @@
-"""The sampler as captured CUDA graphs: the port's counterpart of the
-compile cache of dhg's `_sample_jit` (dhg/inference.py), where the whole
-reverse-diffusion loop is one XLA program per static signature.
+"""The sampler as captured CUDA graphs: the port's counterpart of dhg's
+`_sample_jit` (dhg/inference.py), where the whole reverse-diffusion loop
+is one XLA program per static signature.
 
-`SamplerGraphs` holds one `torch.cuda.CUDAGraph` per key (padded batch,
-seq_len, mode, guided or not, n_steps, schedule, temperature): dhg's jit
-key. The guidance scale is a 0-d device buffer, as dhg traces it, so one
-guided graph serves every scale. Each graph reads static input buffers
-(text [b, L] int64, style [b, 14, 1280], x_init [b, T, 2], noises
-[n, b, T, 2], the guidance scalar) and writes one static output
-[b, T, 3]; `run` copies a request's tensors in, replays, and copies the
-output to the host before it returns.
+`SamplerGraphs` holds one `torch.cuda.CUDAGraph` of
+`dhg_torch.inference._sample` (the body of `generate` after its host-side
+preparation) per `SamplerKey`: dhg's static arguments (padded batch,
+seq_len, mode, guided or not, n_steps and schedule, temperature, hoist,
+encoder_reuse), the text's width, and the kernel modes
+(kernels/runtime.py::kernel_modes), which the traced path reads from the
+environment and a graph bakes in. The guidance scale is a 0-d device
+buffer, as dhg traces it, so one guided graph serves every scale. Each
+graph reads static input buffers (text [b, L] int64, style [b, 14, 1280],
+x_init [b, T, 2], noises [n, b, T, 2], the guidance scalar) and writes one
+static output [b, T, 3]. Randomness is always pre-drawn
+(core/sampling.py::sampler_draws, per_sample_noise_streams), never drawn
+inside a graph.
 
-A key's graph is captured on first use from `dhg_torch.inference._sample`,
-the body of `generate` after its host-side preparation, after one eager
-call on the same buffers: that call builds every lazily made cache (the
-beta table, the models' cast caches, cuBLAS handles) outside the capture,
-so nothing cached is first allocated inside a graph's pool. Randomness is
-always pre-drawn (per_sample_noise_streams), never drawn inside a graph.
+Two front ends share it. `generate` keeps one instance a model
+(inference.py::sampler_graphs) and calls `sample`: a key's first call runs
+`_sample` eagerly (the warm-up a capture needs; a one-shot call pays no
+capture), the second captures the key's graph and replays it, later calls
+replay. The serving runtime keeps its own instance and calls `run`, which
+captures on a key's first use, after one eager call on the same buffers,
+and returns the output on the host.
 
-Memory: all of a cache's graphs share one private pool and are replayed
-one at a time. A graph's temporaries may then lie where another graph's
-output lies, so `run` copies each output off the card before the next
-replay; callers must not replay two graphs at once (the serving runtime
-replays on its one batcher thread). Every capture goes through `capture`:
-capture_error_mode="thread_local" (other threads may run CUDA work
-meanwhile, as long as it is not on the capturing thread), with Python's
-cyclic garbage collected before and the collector held off until it ends.
+A capture starts and ends with the model's cast caches empty
+(ops/basic.py::clear_cast_caches), so the weights' bf16 casts and the
+kernels' weight tiles are made inside the graph: every replay reads the
+parameters as they are then (an in-place update is seen), and no eager
+call keeps a tensor of the graph's pool. An entry also keeps the
+parameters' storage (data_ptr) and the model's training flag at capture;
+a call that finds them changed (weights replaced, `.to()`) captures again.
+The kernel launches a capture records are taken back from the wrappers'
+counts and added at every replay (kernels/runtime.py::add_launches).
 
-CUDA only: on the CPU there is no graph, and callers run `generate`.
+Memory: all of an instance's graphs share one private pool and are
+replayed one at a time, under the instance's lock. A graph's temporaries
+may lie where another graph's output lies, so each call hands back a copy
+of the output taken right after its replay. Every capture goes through
+`capture`: capture_error_mode="thread_local" (other threads may run CUDA
+work meanwhile, as long as it is not on the capturing thread), with
+Python's cyclic garbage collected before and the collector held off until
+it ends. A failed capture raises; nothing falls back to the eager path.
+
+CUDA only: on the CPU there is no graph, and `generate` runs `_sample`.
 """
 
 from __future__ import annotations
 
 import gc
+import itertools
+import threading
+import time
+import weakref
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +63,8 @@ import torch
 from dhg_torch import resolve_device
 from dhg_torch.core.schedule import N_STEPS
 from dhg_torch.inference import _check_model_device, _sample, beta_table
+from dhg_torch.kernels.runtime import add_launches, kernel_modes, launch_counts
+from dhg_torch.ops.basic import clear_cast_caches
 
 
 @contextmanager
@@ -65,6 +88,23 @@ def capture(graph: torch.cuda.CUDAGraph, pool=None):
             gc.enable()
 
 
+class SamplerKey(NamedTuple):
+    """One graph's static arguments, normalised as `generate` normalises
+    them (SamplerGraphs.key)."""
+
+    batch: int
+    seq_len: int
+    text_len: int
+    mode: str
+    guided: bool
+    n_steps: int | None  # None: the canonical 60-level table
+    schedule: str | None  # None with the canonical table
+    temperature: float
+    hoist: str
+    encoder_reuse: int | None
+    kernels: tuple  # kernels/runtime.py::kernel_modes
+
+
 @dataclass
 class _Graph:
     graph: torch.cuda.CUDAGraph
@@ -73,94 +113,172 @@ class _Graph:
     x_init: torch.Tensor
     noises: torch.Tensor
     guidance: torch.Tensor
-    out: torch.Tensor
+    state: tuple  # the model's parameter storage and training flag at capture
+    out: torch.Tensor | None = None
+    launches: dict = field(default_factory=dict)  # kernel launches a replay makes
+    capture_s: float = 0.0  # host seconds of the capture
 
 
 class SamplerGraphs:
-    """One captured sampler graph per key for `model`, replayed by `run`."""
+    """Captured sampler graphs of `model` (held weakly), one per key."""
 
     def __init__(self, model, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
         _check_model_device(model, self.device)
-        self.model = model
+        self._model = weakref.ref(model)
         self.pool = torch.cuda.graph_pool_handle()
-        self._graphs: dict[tuple, _Graph] = {}
+        self.lock = threading.Lock()  # two replays of one pool must not overlap
+        self.captures = 0  # graphs captured so far, captures again included
+        self._graphs: dict[SamplerKey, _Graph] = {}
+        self._seen: set[SamplerKey] = set()  # keys `sample` has run eagerly
 
     @property
-    def captures(self) -> int:
-        """Graphs captured so far (none is ever dropped)."""
-        return len(self._graphs)
+    def model(self):
+        model = self._model()
+        if model is None:
+            raise RuntimeError("the model of these sampler graphs is gone")
+        return model
 
     @staticmethod
     def key(batch: int, seq_len: int, mode: str = "new", guidance_scale=None,
             n_steps: int | None = None, schedule: str = "strided",
-            temperature: float | None = None) -> tuple:
+            temperature: float | None = None, hoist: str | None = None,
+            encoder_reuse: int | None = None, text_len: int = 50,
+            device: str | torch.device = "cuda") -> SamplerKey:
         """The cache key, normalised as `generate` normalises its arguments:
-        guidance 1 is unguided, n_steps 60 the canonical table, temperature
-        None is 1."""
+        guidance 1 is unguided, n_steps 60 the canonical table (whatever
+        the schedule), temperature None is 1, an unknown mode is "new",
+        hoist None is "compact", encoder_reuse <= 1 is none (and reuse
+        runs on the full hoist). The kernel modes are read now, for
+        `device`."""
         guided = guidance_scale is not None and float(guidance_scale) != 1.0
         n_steps = None if n_steps is None or int(n_steps) == N_STEPS else int(n_steps)
-        temperature = 1.0 if temperature is None else float(temperature)
-        return (int(batch), int(seq_len), mode, guided, n_steps, schedule, temperature)
+        reuse = int(encoder_reuse) if encoder_reuse is not None and encoder_reuse > 1 else None
+        return SamplerKey(
+            int(batch), int(seq_len), int(text_len),
+            mode if mode in ("standard", "ddim") else "new", guided, n_steps,
+            None if n_steps is None else schedule,
+            1.0 if temperature is None else float(temperature),
+            "full" if reuse else ("compact" if hoist is None else hoist), reuse,
+            kernel_modes(torch.device(device)))
 
-    def __contains__(self, key: tuple) -> bool:
+    def __contains__(self, key: SamplerKey) -> bool:
         return key in self._graphs
+
+    def info(self, key: SamplerKey) -> dict | None:
+        """The key's capture: its host seconds and the kernel launches each
+        replay makes; None if the key has no graph."""
+        entry = self._graphs.get(key)
+        if entry is None:
+            return None
+        return {"capture_s": entry.capture_s, "launches": dict(entry.launches)}
+
+    def sample(self, text: torch.Tensor, style: torch.Tensor, x_init: torch.Tensor,
+               noises: torch.Tensor, seq_len: int, mode: str = "new", guidance_scale=None,
+               n_steps: int | None = None, schedule: str = "strided",
+               temperature: float | None = None, hoist: str | None = None,
+               encoder_reuse: int | None = None) -> torch.Tensor:
+        """`generate`'s body on the card: strokes [b, seq_len, 3] (float32,
+        a device tensor of the caller's) for device inputs text [b, L],
+        style [b, 14, 1280], x_init [b, T, 2] and noises [n, b, T, 2]. The
+        key's first call runs `_sample` eagerly; the second captures the
+        graph and replays it; later calls replay. Every call gives the bits
+        of `_sample` on the same inputs."""
+        key = self.key(text.shape[0], seq_len, mode, guidance_scale, n_steps, schedule,
+                       temperature, hoist, encoder_reuse, text.shape[1], self.device)
+        with self.lock, torch.inference_mode():
+            if key not in self._seen:
+                out = _sample(self.model, text, style, None, seq_len, self._beta(key), mode,
+                              guidance_scale, key.temperature, x_init, noises, self.device,
+                              key.hoist, key.encoder_reuse)
+                self._seen.add(key)
+                return out
+            return self._replay(key, text, style, x_init, noises, guidance_scale,
+                                warm_up=False).out.clone()
 
     def run(self, text: torch.Tensor, style: torch.Tensor, x_init: torch.Tensor,
             noises: torch.Tensor, seq_len: int, mode: str = "new", guidance_scale=None,
             n_steps: int | None = None, schedule: str = "strided",
             temperature: float | None = None) -> np.ndarray:
         """Strokes [b, seq_len, 3] (float32, on the host) for device inputs
-        text [b, L], style [b, 14, 1280], x_init [b, T, 2] and noises
-        [n, b, T, 2], by replaying the key's graph (captured first if it is
-        new). The same inputs give the same bits as `generate` with them."""
+        as `sample`'s, by replaying the key's graph, captured first (after
+        one eager call on its buffers) if the key is new. The same inputs
+        give the same bits as `generate` with them."""
         key = self.key(text.shape[0], seq_len, mode, guidance_scale, n_steps, schedule,
-                       temperature)
-        if key[6] <= 0.0:
-            raise ValueError(f"temperature must be > 0, got {key[6]}")
+                       temperature, text_len=text.shape[1], device=self.device)
+        if key.temperature <= 0.0:
+            raise ValueError(f"temperature must be > 0, got {key.temperature}")
+        with self.lock, torch.inference_mode():
+            return self._replay(key, text, style, x_init, noises, guidance_scale,
+                                warm_up=True).out.cpu().numpy()
+
+    def _beta(self, key: SamplerKey) -> torch.Tensor:
+        return beta_table(N_STEPS if key.n_steps is None else key.n_steps,
+                          key.schedule or "strided", str(self.device))
+
+    def _state(self) -> tuple:
+        model = self.model
+        return tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
+                                                           model.buffers())) + (model.training,)
+
+    def _replay(self, key, text, style, x_init, noises, guidance_scale, warm_up) -> _Graph:
+        """The key's graph, replayed on these inputs (captured first if the
+        key is new or the model's parameters moved). The lock is held."""
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        with torch.inference_mode():
-            entry = self._graphs.get(key)
-            fresh = entry is None
-            if fresh:
-                entry = self._buffers(text, style, x_init, noises)
-            entry.text.copy_(text)
-            entry.style.copy_(style)
-            entry.x_init.copy_(x_init)
-            entry.noises.copy_(noises)
-            entry.guidance.fill_(1.0 if guidance_scale is None else float(guidance_scale))
-            if fresh:
-                self._capture(key, entry)
-                self._graphs[key] = entry
-            entry.graph.replay()
-            return entry.out.cpu().numpy()
+        n = self._beta(key).shape[0]
+        if noises.shape[0] != n:
+            raise ValueError(f"{noises.shape[0]} noise draws for {n} steps")
+        state = self._state()
+        entry = self._graphs.get(key)
+        if entry is not None and entry.state != state:
+            del self._graphs[key]  # the weights moved: this graph reads the old ones
+            entry = None
+        fresh = entry is None
+        if fresh:
+            entry = self._buffers(key, style, n, state)
+        entry.text.copy_(text)
+        entry.style.copy_(style)
+        entry.x_init.copy_(x_init)
+        entry.noises.copy_(noises)
+        entry.guidance.fill_(1.0 if guidance_scale is None else float(guidance_scale))
+        if fresh:
+            self._capture(key, entry, warm_up)
+            self._graphs[key] = entry
+        entry.graph.replay()
+        add_launches(entry.launches)
+        return entry
 
-    def _buffers(self, text, style, x_init, noises) -> _Graph:
-        dev = self.device
+    def _buffers(self, key: SamplerKey, style: torch.Tensor, n: int, state: tuple) -> _Graph:
+        b, t, dev = key.batch, key.seq_len, self.device
+        return _Graph(torch.cuda.CUDAGraph(),
+                      torch.empty((b, key.text_len), dtype=torch.long, device=dev),
+                      torch.empty((b,) + tuple(style.shape[1:]), device=dev),
+                      torch.empty((b, t, 2), device=dev), torch.empty((n, b, t, 2), device=dev),
+                      torch.ones((), device=dev), state)
 
-        def like(t, dtype):
-            return torch.empty(t.shape, dtype=dtype, device=dev)
-
-        return _Graph(torch.cuda.CUDAGraph(), like(text, torch.long),
-                      like(style, torch.float32), like(x_init, torch.float32),
-                      like(noises, torch.float32),
-                      torch.ones((), dtype=torch.float32, device=dev), None)
-
-    def _capture(self, key: tuple, entry: _Graph) -> None:
-        _, seq_len, mode, guided, n_steps, schedule, temperature = key
-        beta_set = beta_table(N_STEPS if n_steps is None else n_steps, schedule,
-                              str(self.device))
-        if beta_set.shape[0] != entry.noises.shape[0]:
-            raise ValueError(f"{entry.noises.shape[0]} noise draws for {beta_set.shape[0]} steps")
+    def _capture(self, key: SamplerKey, entry: _Graph, warm_up: bool) -> None:
+        model, beta_set = self.model, self._beta(key)
 
         def body():
-            return _sample(self.model, entry.text, entry.style, None, seq_len, beta_set, mode,
-                           entry.guidance if guided else None, temperature, entry.x_init,
-                           entry.noises, self.device)
+            return _sample(model, entry.text, entry.style, None, key.seq_len, beta_set,
+                           key.mode, entry.guidance if key.guided else None, key.temperature,
+                           entry.x_init, entry.noises, self.device, key.hoist,
+                           key.encoder_reuse)
 
-        body()  # eager: builds the caches outside the capture
-        with capture(entry.graph, self.pool):
-            entry.out = body()
+        if warm_up:
+            body()  # eager: builds what is made lazily outside the capture
+        clear_cast_caches(model)
+        before, t0 = launch_counts(), time.perf_counter()
+        try:
+            with capture(entry.graph, self.pool):
+                entry.out = body()
+        finally:
+            clear_cast_caches(model)  # casts the capture cached live in the graph's pool
+            entry.launches = {k: v - before[k] for k, v in launch_counts().items()
+                              if v != before[k]}
+            add_launches({k: -v for k, v in entry.launches.items()})
+        entry.capture_s = time.perf_counter() - t0
+        self.captures += 1

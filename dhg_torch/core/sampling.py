@@ -52,6 +52,28 @@ def infer_seq_len(num_tokens: int) -> int:
     return t - (t % 8) + 8
 
 
+def sampler_draws(batch_size: int, seq_len: int, n_steps: int, mode: str = "new",
+                  generator: torch.Generator | None = None,
+                  device: str | torch.device = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """(x_init [B, T, 2], noises [n_steps, B, T, 2]), float32 on `device`,
+    drawn from `generator` (torch's default generator of `device` when None)
+    as diffusion_sample draws them: x_T first, then one normal a step, each
+    its own call (one [n, B, T, 2] draw would advance the generator
+    differently), and no draw under "ddim", whose noises are zeros.
+    diffusion_sample_encoder_reuse draws through diffusion_sample, in the
+    same order. Passed back as x_init / noises they give the strokes that
+    `generator` would, and leave it where diffusion_sample leaves it."""
+    shape = (batch_size, seq_len, 2)
+
+    def draw():
+        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+    x_init = draw()
+    if mode == "ddim":
+        return x_init, torch.zeros((n_steps,) + shape, device=device)
+    return x_init, torch.stack([draw() for _ in range(n_steps)])
+
+
 def per_sample_noise_streams(seeds, n_steps: int, seq_len: int,
                              device: str | torch.device = "cuda"
                              ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -16,7 +16,11 @@
     token 0 open (all-padding text would mask every key).
 hoist="full" computes every level's K/V before the loop instead, and
 encoder_reuse=k runs the encoder half every k-th step on the full hoist.
-The loop runs under torch.inference_mode().
+The loop runs under torch.inference_mode(). On CUDA, as dhg compiles one
+program per static key, `generate` replays one captured CUDA graph of the
+whole of `_sample` per key (core/graphs.py, sampler_graphs): a key's
+first call runs eagerly, its second captures, later calls replay. The
+eager body alone is `_sample`. On the CPU every call is eager.
 
 `infer` is dhg's front end: the run dir's checkpoint (model_final, then
 model_last, then the highest checkpoint_<N>) loaded in float32 as dhg's
@@ -28,6 +32,8 @@ strokes. Images are PNG only (dhg_torch.data.images).
 from __future__ import annotations
 
 import sys
+import threading
+import weakref
 from functools import lru_cache
 from pathlib import Path
 
@@ -36,7 +42,7 @@ import torch
 
 from dhg_torch import resolve_device
 from dhg_torch.core.sampling import (diffusion_sample, diffusion_sample_encoder_reuse,
-                                     infer_seq_len, per_sample_noise_streams)
+                                     infer_seq_len, per_sample_noise_streams, sampler_draws)
 from dhg_torch.core.schedule import N_STEPS, get_alpha_set, get_beta_set
 from dhg_torch.data.tokenizer import Tokenizer
 from dhg_torch.ops.basic import create_padding_mask
@@ -150,6 +156,15 @@ def generate(
     guidance, as in dhg. dhg's reuse path ignores temperature and per-row
     keys without a word; here it refuses them. Explicit x_init / noises
     are taken.
+
+    On CUDA the call runs through sampler_graphs(model): the first call of
+    a key (core/graphs.py::SamplerGraphs.key: batch, seq_len, text width,
+    mode, guided or not, n_steps and schedule, temperature, hoist,
+    encoder_reuse and the kernel modes) runs `_sample` eagerly, the second
+    captures it as one CUDA graph and replays it, later calls replay. The
+    draws are made before, in diffusion_sample's order
+    (core/sampling.py::sampler_draws), so each call gives the eager bits
+    and leaves `generator` where the eager call leaves it.
     """
     dev = resolve_device(device)
     _check_model_device(model, dev)
@@ -184,6 +199,8 @@ def generate(
         if len(sample_seeds) != text.shape[0]:
             raise ValueError(f"{len(sample_seeds)} sample_seeds for a batch of {text.shape[0]}")
         x_init, noises = per_sample_noise_streams(sample_seeds, beta_set.shape[0], seq_len, dev)
+    if (x_init is None) != (noises is None):
+        raise ValueError("pass both x_init and noises, or neither")
     if mesh is not None and mesh.data_group is not None:
         return _generate_split(mesh, model, text, style, generator, seq_len, diffusion_mode,
                                guidance_scale, n_steps, schedule, temperature, x_init, noises,
@@ -192,9 +209,32 @@ def generate(
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if x_init is None:
+            x_init, noises = sampler_draws(text.shape[0], seq_len, beta_set.shape[0],
+                                           diffusion_mode, generator, dev)
+        return sampler_graphs(model, dev).sample(
+            text, style, x_init, noises, seq_len, diffusion_mode, guidance_scale, n_steps,
+            schedule, temperature, hoist, encoder_reuse)
     with torch.inference_mode():
         return _sample(model, text, style, generator, seq_len, beta_set, diffusion_mode,
                        guidance_scale, temperature, x_init, noises, dev, hoist, encoder_reuse)
+
+
+_graphs_lock = threading.Lock()
+_graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # model -> SamplerGraphs
+
+
+def sampler_graphs(model, device: str | torch.device = "cuda"):
+    """The core.graphs.SamplerGraphs that `generate` replays for `model` on
+    CUDA: one a model, made on its first use and held without keeping the
+    model alive. Like dhg's jit cache it keeps every key it has seen."""
+    from dhg_torch.core.graphs import SamplerGraphs
+
+    with _graphs_lock:
+        graphs = _graphs.get(model)
+        if graphs is None:
+            graphs = _graphs[model] = SamplerGraphs(model, device)
+        return graphs
 
 
 def _generate_split(mesh, model, text, style, generator, seq_len, mode, guidance_scale, n_steps,
@@ -210,12 +250,7 @@ def _generate_split(mesh, model, text, style, generator, seq_len, mode, guidance
     if b < mesh.data_size:
         raise ValueError(f"a batch of {b} does not split over {mesh.data_size} data ranks")
     if x_init is None:
-        # The draws diffusion_sample makes from `generator`, in its order:
-        # x_T, then one normal a step unless the mode is DDIM.
-        shape = (b, seq_len, 2)
-        x_init = torch.randn(shape, generator=generator, device=dev)
-        noises = (torch.zeros((n,) + shape, device=dev) if mode == "ddim" else torch.stack(
-            [torch.randn(shape, generator=generator, device=dev) for _ in range(n)]))
+        x_init, noises = sampler_draws(b, seq_len, n, mode, generator, dev)
     sizes = [len(c) for c in torch.arange(b).tensor_split(mesh.data_size)]
     lo = sum(sizes[:mesh.data_index])
     rows = slice(lo, lo + sizes[mesh.data_index])

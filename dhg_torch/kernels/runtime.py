@@ -15,7 +15,8 @@ tensors; the backward of both recomputes the plain math, so the flags are
 safe for the sampler and the train step alike.
 DHG_FUSED_T4 gates the sampler's fused_unet_t4 path, default "0" as in dhg.
 dhg's `rows` packing and DHG_SDPA_BATCHED are TPU lowering choices with
-identical output; they have no counterpart here.
+identical output; they have no counterpart here. kernel_modes gathers the
+four modes for a CUDA graph's key.
 
 launch_counts / add_launches read and add to the wrappers' launch counts:
 a CUDA graph's replay launches kernels that no wrapper sees.
@@ -58,6 +59,15 @@ def use_fused_attention(device: torch.device) -> bool:
 def use_fused_conv_block(device: torch.device) -> bool:
     """Route ConvBlocks on `device` through kernels/fused_conv_block.py."""
     return _flag_on("DHG_FUSED_CONVBLOCK", device)
+
+
+def kernel_modes(device: torch.device) -> tuple[str, str, bool, bool]:
+    """(fused_bottleneck_mode, fused_t4_mode, use_fused_attention,
+    use_fused_conv_block) for `device`: every mode the traced sampler and
+    train paths read from the environment, call by call. A CUDA graph bakes
+    in the path it captured, so a graph's key carries these."""
+    return (fused_bottleneck_mode(device), fused_t4_mode(device),
+            use_fused_attention(device), use_fused_conv_block(device))
 
 
 def _launch_dicts() -> list[dict]:

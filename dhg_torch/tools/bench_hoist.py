@@ -8,7 +8,8 @@ The full hoist computes every level's cross-attention K/V before the loop
 level, ~3.7 GB at batch 256 with 50 tokens, ~11 GB at 768); the compact
 hoist keeps the conditioning memory and rebuilds each step's K/V in the
 loop (dhg_torch/inference.py::generate). This times both over the batch:
-a warm-up call, then `iters` 60-step calls queued and one synchronise.
+two warm-up calls (on CUDA the eager call and the capture of generate's
+graph), then `iters` 60-step calls, replays, queued and one synchronise.
 The model is random (seed 0, the canonical widths, bf16), seq_len 392,
 50 text tokens, mode "new".
 
@@ -25,7 +26,8 @@ import sys
 
 import torch
 
-from dhg_torch.tools.common import backend, random_inputs, seconds_per_call, tool_device
+from dhg_torch.tools.common import (backend, random_inputs, seconds_per_call, tool_device,
+                                    warm_up)
 
 N_STEPS = 60
 SEQ_LEN = 392  # a 24-token prompt's bucket, as chip_smoke.py
@@ -45,7 +47,7 @@ def measure(batch: int, hoist: str, iters: int = 4, device: str | torch.device =
                         seq_len=SEQ_LEN, n_steps=N_STEPS, hoist=hoist, device=dev)
 
     try:
-        sample(-1)  # warm-up
+        warm_up(sample, dev)
     except torch.cuda.OutOfMemoryError as e:  # the out-of-memory cell is the point
         error = {"batch": batch, "hoist": hoist, "error": type(e).__name__,
                  "detail": str(e).split("\n")[0][:200], "backend": backend(dev)}

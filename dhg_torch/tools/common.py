@@ -28,9 +28,19 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def warm_up(fn, device: torch.device) -> None:
+    """Two calls of `fn(i)` (i = -2, -1) before it is timed: on CUDA a
+    `generate` key's first call runs eagerly and its second captures the
+    key's CUDA graph, so every timed call after them is a replay."""
+    for i in (-2, -1):
+        fn(i)
+    synchronize(device)
+
+
 def seconds_per_call(fn, iters: int, device: torch.device) -> float:
     """Mean seconds per call of `iters` calls queued back to back, the host
-    clock stopped after one synchronise (warm up before calling this)."""
+    clock stopped after one synchronise (warm up before calling this:
+    `warm_up` for a `generate` key)."""
     synchronize(device)
     t0 = time.perf_counter()
     for i in range(iters):

@@ -15,7 +15,8 @@ sampler from the same generator seed:
     closeness of the endpoint, not a step-for-step match; with
     --diffusion_mode=ddim both start from the same x_T and inject no noise,
     so the MSE is the discretisation error;
-  * ms per call and lines/s: N calls queued, one synchronise.
+  * ms per call and lines/s: N calls queued, one synchronise, after two
+    warm-up calls (on CUDA the timed calls replay generate's graph).
 
 The model is the run's checkpoint in float32, as dhg's load_model loads
 it. Prints one JSON object (dhg's keys, plus `backend`).
@@ -56,6 +57,7 @@ def evaluate_fewer_steps(
 
     def timed(n_steps):
         out = call(n_steps, seed).cpu().numpy()  # warm-up, and the result for fidelity
+        call(n_steps, seed)  # the second warm-up: on CUDA, the capture
         return out, seconds_per_call(lambda i: call(n_steps, seed + 1 + i), iters, dev)
 
     exact, sec60 = timed(None)

@@ -1,12 +1,17 @@
 """Where a sampler call's time goes on the card: torch.profiler over one
 generate call of the canonical bf16 model, summed by kernel and by stage.
+The profiled call is what `generate` runs once warm, a replay of its
+captured CUDA graph (after the key's eager first call and its capture);
+beside it, one eager call of the same key through `_sample`, the body the
+graph holds, dispatched op by op from Python.
 
     python -m dhg_torch.tools.profile_sampler [--batch 1 96 256] [--steps 10]
         [--out report.json] [--trace-dir DIR]
 
-For each batch it prints: the wall time of the profiled call, the summed
-device (CUDA kernel) time, the device idle share (1 - device time / wall
-time), and the kernels with the most device time. Weights are random
+For each batch it prints, for the replay and for the eager call: the wall
+time of the profiled call, the summed device (CUDA kernel) time, the
+device idle share (1 - device time / wall time) and the kernel count; then
+the replay's kernels with the most device time. Weights are random
 (seed 0); seq_len 392 and 50 text tokens, as in chip_smoke.py. Needs a CUDA
 card.
 """
@@ -32,7 +37,10 @@ def _device_time_us(evt) -> float:
 
 
 def profile_batch(model, batch: int, steps: int, trace_dir: str | None) -> dict:
-    from dhg_torch.inference import generate
+    """profile_call of a replayed `steps`-step generate at `batch` (its
+    figures at the top level, the trace to trace_dir), and under "eager"
+    those of one `_sample` call on the same inputs."""
+    from dhg_torch.inference import _sample, beta_table, generate
 
     rng = np.random.RandomState(batch)
     text = np.zeros((batch, 50), np.int64)
@@ -44,9 +52,18 @@ def profile_batch(model, batch: int, steps: int, trace_dir: str | None) -> dict:
     def call():
         return generate(model, text, style, gen, seq_len=392, n_steps=steps, device="cuda")
 
-    call()  # warm-up: kernel build, allocator, cuBLAS handles
+    def eager():
+        with torch.inference_mode():
+            return _sample(model, torch.from_numpy(text).cuda(), torch.from_numpy(style).cuda(),
+                           gen, 392, beta_table(steps, "strided", "cuda"), "new", None, 1.0,
+                           None, None, torch.device("cuda"))
+
+    call()  # warm-up: kernel build, allocator, cuBLAS handles (generate's eager call)
+    call()  # the capture of generate's graph for this key
     trace = os.path.join(trace_dir, f"sampler_b{batch}.json") if trace_dir else None
-    return {"batch": batch, "steps": steps, **profile_call(call, trace)}
+    replay = profile_call(call, trace)
+    eager_figures = {k: v for k, v in profile_call(eager).items() if k != "top"}
+    return {"batch": batch, "steps": steps, **replay, "eager": eager_figures}
 
 
 def profile_call(call, trace: str | None = None) -> dict:
@@ -100,9 +117,10 @@ def main() -> None:
     for b in args.batch:
         r = profile_batch(model, b, args.steps, args.trace_dir)
         results.append(r)
-        print(f"batch {b}, {r['steps']} steps: wall {r['wall_ms']:.1f} ms, device "
-              f"{r['device_ms']:.1f} ms, idle share {r['idle_share']:.3f}, "
-              f"{r['n_kernel_launches']} kernel launches")
+        for name, f in (("replay", r), ("eager", r["eager"])):
+            print(f"batch {b}, {r['steps']} steps, {name}: wall {f['wall_ms']:.1f} ms, device "
+                  f"{f['device_ms']:.1f} ms, idle share {f['idle_share']:.3f}, "
+                  f"{f['n_kernel_launches']} kernel launches")
         for k in r["top"]:
             print(f"  {k['device_ms']:9.3f} ms  {k['calls']:6d}x  {k['kernel']}")
     if args.out:

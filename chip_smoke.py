@@ -123,30 +123,37 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  dhg_torch.train.main with dataset iam (configs/best.yml's
                  model and batch, both train-path kernels: 9 and 6 launches
                  a forward, the steps' and the val_freq passes' at steps 10
-                 and 20), checkpoints 10 and 20 averaged
-                 (tools/average_checkpoints) and loaded; the eval CLI on the
-                 soup (one finite Val Loss line); the metrics CLI (64
+                 and 20; the passes through one make_eval_fn step that
+                 captured one graph a batch shape), checkpoints 10 and 20
+                 averaged (tools/average_checkpoints) and loaded; the eval
+                 CLI on the soup (one finite Val Loss line, one capture a
+                 batch shape); the metrics CLI (64
                  samples, batch 32, the f32 60-step sampler at seq_len 480:
                  finite KS distances and frechet_style_distance)
   7e. distill  — dhg_torch.distill.main (f32, as dhg's CLI) from the train
                  run's model_final, 60 -> 30, 20 steps at batch 96, flags
-                 off then on, on the same draws: launches zeroed before
+                 off then on, on the same draws, each step after the first
+                 a replay of the captured step graph: launches zeroed before
                  each CLI run and read after (with the flags on 27
                  attention and 18 conv-block launches a step, 9 and 6 for
                  each of the closing probe's 90 sampler levels; none off);
                  the first step's loss triples within 1e-4 relative; steps/s
-                 from CUDA events; the infer CLI on the student with no
+                 from CUDA events (steps 2-20, replayed); the infer CLI on
+                 the student with no
                  flags must take 30 steps, the halved grid and DDIM;
                  tools/probe_distill --multi=1 (f32) finite; then the
                  probe's three generate calls on teacher and student loaded
                  in bf16 at B = 8: 120 bottleneck and 240 encoder-layer
                  launches, finite
   7f. multiprocess — `python -m dhg_torch.train` (f32, batch 96, both
-                 train flags, 5 steps): in an NCCL group of one process,
-                 equal bit for bit to the run without a group; two
+                 train flags, 5 steps, a validation after step 4; two runs
+                 at a time on the card, the first two, then the gloo two): in an
+                 NCCL group of one process, equal bit for bit to the run
+                 without a group (losses and the replayed validation); two
                  processes sharing the card under gloo at data_parallel 2,
-                 then model_parallel 2 (each run.log shows its mesh, and
-                 that steps_per_call auto is 1 under gloo), losses
+                 then model_parallel 2 (each run.log shows its mesh, that
+                 steps_per_call auto is 1 under gloo and that validation
+                 runs eagerly under gloo), losses
                  within 1e-4 relative of the run without a group, one run
                  dir; the model_parallel run's model_final loads strictly
                  into a one-device model
@@ -172,7 +179,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  profile_steps 1: one Chrome trace holding steps 2-3 that
                  names attention_mma_kernel and conv_block_kernel; then
                  eval_fewer_steps and eval_encoder_reuse on the train run
-                 (f32), sweep, bench_hoist and profile_stages (batch 96:
+                 (f32), sweep (batch 96), bench_hoist and profile_stages (batch 96:
                  each stage's kernels) at small arguments, each report's
                  JSON parsed and its keys checked, and plot_run's PNG of
                  the profile run
@@ -216,7 +223,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  an eager trainer (train_step, steps 1-20) against a chunked
                  one (train_chunk 16 + 4: the first step eager, then the
                  captured step graph replayed) from one init, an `evaluate`
-                 of each before the steps, after 16 and after 20: params,
+                 of each (one make_eval_fn step a trainer) before the
+                 steps, after 16 and after 20: params,
                  EMA, Adam moments, the [20, 3] rows and the evaluations
                  equal bit for bit, launches equal (9 and 6 a step with the
                  flags, none without); then eager and replayed
@@ -232,8 +240,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  inside the step's capture: the chunk must be captured,
                  with the collector off during the capture
   8c. profile  — dhg's train-step profile, tools/profile_train.py::profile
-                 at dhg's defaults (batch 96, steps_per_window 96: 6 chunks
-                 of 16 steps a window; configs/smoke.yml's model, bf16),
+                 at batch 96 (dhg's default) and steps_per_window 32 (a
+                 third of dhg's 96, for the script's time: 2 chunks of 16
+                 steps a window; configs/smoke.yml's model, bf16),
                  flags off, then on with a trace_dir: launch counts zeroed
                  before each run and read after (with the flags 9 attention
                  and 6 conv-block launches for each step of the 5 replayed
@@ -248,6 +257,28 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  first row of train_chunk(7, 1) from the same params: within
                  1e-6 relative (bit for bit expected). The phase within
                  PROFILE_PHASE_S seconds
+  8d. distill and eval graphs — dhg's jitted distill step and eval step,
+                 on the train run's config and model_final (kept from phase
+                 7): two Distillers from that teacher (a pair in f32, a
+                 pair in bf16, each case from fresh students), eager `step` against
+                 make_step_fn's step (the first eager, then the captured
+                 graph replayed) on the same 20 draws, batch 96, f32 flags
+                 off and on, bf16 flags on: student params, Adam moments,
+                 the [20, 3] rows equal bit for bit, launches equal (27
+                 attention and 18 conv-block a step with the flags, none
+                 without); in f32 eager and replayed steps/s in turns
+                 (eager, graph, graph, eager; CUDA events over 4 steps),
+                 the capture seconds, each distiller's peak memory and,
+                 flags on, the idle share of 8 profiled replayed steps
+                 beside 4 eager ones. Then `evaluate` through make_eval_fn on a synthetic
+                 validation cache of 200 rows at batch 96 (two batches and
+                 a tail of 8: two keys, two captures), the bf16 teacher,
+                 flags off and on, against eager eval_batch on the same
+                 inputs: every batch bit for bit, launches 9 and 6 a level
+                 with the flags; eager against replayed ms for a batch; a
+                 weight changed in place read by the next replay, a
+                 replaced storage captured again. The phase's seconds
+                 against GRAPH_PHASE_S, logged
 The weights are random (seed 0); depth is the canonical 2 attention layers.
 
 The kernels line counts the sampler kernels' launches from phase 5c's
@@ -259,6 +290,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import json
 import os
 import statistics
@@ -328,9 +360,14 @@ TOOL_KEYS = {
 STYLE_TRUNK = {"steps": 600, "writers": 128, "per_writer": 16, "batch": 64, "width": 384}
 STYLE_TREE = {"writers": 32, "steps": 100, "batch": 64, "width": 384}
 STYLE_PHASE_S = 120.0
+# Phase 8d: steps of each eager / replayed distill pair, steps of each timed
+# turn, the validation cache's rows (two batches of 96 and a tail of 8), and
+# the phase's time budget (seconds; logged, not fatal).
+GRAPH_DISTILL_STEPS, GRAPH_TIMED_STEPS, GRAPH_EVAL_ROWS, GRAPH_PHASE_S = 20, 4, 200, 60.0
+GRAPH_PROFILED_STEPS = 8  # phase 8d: replayed distill steps under the profiler
 CONVERT_PHASE_S = 15.0  # phase 7i's time limit (seconds)
 PROFILE_PHASE_S = 120.0  # phase 8c's time limit (seconds)
-PROFILE_WINDOW = 96  # phase 8c: profile's steps_per_window (dhg's default)
+PROFILE_WINDOW = 32  # phase 8c: profile's steps_per_window (dhg's default 96, cut for time)
 # Phase 8c: the keys of profile's report (dhg's, with the MFU key naming the
 # H100's peak, plus "device").
 PROFILE_KEYS = {"batch", "backend", "device", "steps_per_sec", "rate_trials", "ms_per_step",
@@ -1517,6 +1554,7 @@ def iam_phase(report, tmp):
     import io
     from pathlib import Path
 
+    from dhg_torch import eval as eval_mod
     from dhg_torch.config import DLConfig
     from dhg_torch.data import strokes as stroke_parse
     from dhg_torch.data.iam import load_or_build_cache
@@ -1597,12 +1635,36 @@ def iam_phase(report, tmp):
         out[kind] = built
         caches[kind] = cache
 
+    # Every eval step made (make_eval_fn), to read its captures: on the card
+    # the val_freq passes and the eval CLI replay one graph a batch shape.
+    made: list = []
+    real_make_eval = eval_mod.make_eval_fn
+
+    def spy_make_eval(*args, **kwargs):
+        made.append(real_make_eval(*args, **kwargs))
+        return made[-1]
+
+    def eval_graphs(n_rows: int, batch: int) -> dict:
+        """The one step made since the last call, against one capture a
+        batch shape (the tail its own); fatal unless it replayed."""
+        want = len({min(batch, n_rows - i) for i in range(0, n_rows, batch)})
+        steps, caps = list(made), [getattr(m, "captures", None) for m in made]
+        made.clear()
+        if len(steps) != 1 or not isinstance(steps[0], eval_mod.EvalGraphs) or caps != [want]:
+            fail(f"iam: eval steps {steps} with captures {caps}, expected one EvalGraphs "
+                 f"with {want}")
+        return {"captures": caps[0], "keys": len(steps[0].graphs)}
+
     set_train_flags(True)
     reset_all_counts()
-    t0 = time.perf_counter()
-    trainer = train_main(cfg, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    eval_mod.make_eval_fn = spy_make_eval
+    try:
+        t0 = time.perf_counter()
+        trainer = train_main(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eval_mod.make_eval_fn = real_make_eval
     run = trainer.exp_dir
     rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in rows if "loss" in r]
@@ -1616,14 +1678,16 @@ def iam_phase(report, tmp):
            fk.launches["fused_bottleneck"] + fk.launches["fused_encoder_layer"])
     want = (9 * forwards, 6 * forwards, 0)
     set_train_flags(False)
+    val_graphs = eval_graphs(n_val, min(TRAIN_B, n_val))
     log(f"  training: {TRAIN_STEPS} steps + {val_forwards} validation forwards in {wall:.1f} s; "
-        f"launches {got} (want {want}); losses {losses}; val losses {vals}")
+        f"launches {got} (want {want}); losses {losses}; val losses {vals}; the val passes' "
+        f"step {val_graphs}")
     if got != want:
         fail(f"iam train: launches {got}, expected {want}")
     if len(losses) != TRAIN_STEPS // 5 or len(vals) != 2 or not np.all(np.isfinite(losses + vals)):
         fail("iam train: bad metrics.jsonl (losses or the val_freq pass)")
     out["training"] = dict(wall_s=wall, losses=losses, val_losses=vals, launches=list(got),
-                           forwards=forwards)
+                           forwards=forwards, val_graphs=val_graphs)
 
     soup = run / "soup_10_20"
     with contextlib.redirect_stdout(io.StringIO()) as said:
@@ -1640,17 +1704,23 @@ def iam_phase(report, tmp):
         fail("iam: the averaged checkpoint is wrong")
     del model
 
-    with contextlib.redirect_stdout(io.StringIO()) as said:
-        t0 = time.perf_counter()
-        val = eval_main([f"--experiment_path={run}", f"--checkpoint_path={soup}",
-                         "--split=validation", "--batch_size=96"])
-        eval_s = time.perf_counter() - t0
+    eval_mod.make_eval_fn = spy_make_eval
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            t0 = time.perf_counter()
+            val = eval_main([f"--experiment_path={run}", f"--checkpoint_path={soup}",
+                             "--split=validation", "--batch_size=96"])
+            eval_s = time.perf_counter() - t0
+    finally:
+        eval_mod.make_eval_fn = real_make_eval
     line = said.getvalue().strip()
-    log(f"  eval CLI (the soup, validation): {line!r}, {eval_s:.1f} s")
+    cli_graphs = eval_graphs(n_val, min(96, n_val))
+    log(f"  eval CLI (the soup, validation): {line!r}, {eval_s:.1f} s; its step {cli_graphs}")
     if not line.startswith("Val Loss: ") or "| Val Score: " not in line or not np.isfinite(
             val).all():
         fail(f"iam: bad eval line {line!r}")
-    out["eval"] = dict(line=line, values=[float(v) for v in val], wall_s=eval_s)
+    out["eval"] = dict(line=line, values=[float(v) for v in val], wall_s=eval_s,
+                       graphs=cli_graphs)
 
     with contextlib.redirect_stdout(io.StringIO()) as said:
         t0 = time.perf_counter()
@@ -1697,18 +1767,25 @@ def distill_phase(run, tmp, report):
 
     t_phase = time.perf_counter()
     out: dict = {}
-    # Each step's loss triple and a CUDA event after it, read once the run ends.
+    # Each step's loss triple, a CUDA event after it and whether the step's
+    # graph was captured by then, read once the run ends: the recorder wraps
+    # the step distill() takes from make_step_fn.
     steps: list = []
-    real_step = distill.Distiller.step
+    real_make = distill.Distiller.make_step_fn
 
-    def recorded(self, arrays, d):
-        metrics = real_step(self, arrays, d)
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        steps.append((metrics, ev))
-        return metrics
+    def recorded_make(self, data):
+        step = real_make(self, data)
 
-    distill.Distiller.step = recorded
+        def recorded(d):
+            metrics = step(d)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            steps.append((metrics, ev, self.graph is not None and self.graph.graph is not None))
+            return metrics
+
+        return recorded
+
+    distill.Distiller.make_step_fn = recorded_make
     runs = {}
     try:
         for label in ("off", "on"):
@@ -1722,15 +1799,18 @@ def distill_phase(run, tmp, report):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = kernel_launches()
-            losses = [m.tolist() for m, _ in steps]
+            losses = [m.tolist() for m, _, _ in steps]
             rate = (len(steps) - 1) / (steps[0][1].elapsed_time(steps[-1][1]) / 1e3)
+            replayed = all(c for _, _, c in steps)
             runs[label] = dict(student=str(student), wall_s=wall, steps_per_s=rate,
-                               losses=losses, launches=counts)
+                               losses=losses, launches=counts, replayed=replayed)
             log(f"  flags {label}: {DISTILL_STEPS} distill steps at batch {TRAIN_B}, "
-                f"{rate:.3f} steps/s (steps 2-{DISTILL_STEPS}, CUDA events); CLI {wall:.1f} s; "
-                f"launches {counts}")
+                f"{rate:.3f} steps/s (steps 2-{DISTILL_STEPS} replayed, CUDA events); CLI "
+                f"{wall:.1f} s; launches {counts}; step graph captured at step 1 {replayed}")
+            if len(steps) != DISTILL_STEPS or not replayed:
+                fail(f"distill {label}: the CLI's steps did not replay a captured graph")
     finally:
-        distill.Distiller.step = real_step
+        distill.Distiller.make_step_fn = real_make
         set_train_flags(False)
     probe_steps = 60 + 30  # probe_fidelity: the teacher's 60 levels, the student's 30
     want = {"fused_attention": 27 * DISTILL_STEPS + 9 * probe_steps,
@@ -1889,36 +1969,57 @@ def multiprocess_phase(tmp, report):
     out: dict = {}
     base = best_config(tmp, MP_STEPS, TRAIN_B)
     base["training_args"].update(compute_dtype="float32", log_freq=1, save_freq=1000,
+                                 val_freq=MP_STEPS,
                                  mesh={"data_parallel": None, "model_parallel": 1})
+    specs = (("solo", 1, {}),
+             ("nccl1", 1, {"distributed": {"num_processes": 1, "backend": "nccl"}}),
+             ("gloo_dp2", 2, {"distributed": {"num_processes": 2, "backend": "gloo"}}),
+             ("gloo_tp2", 2, {"distributed": {"num_processes": 2, "backend": "gloo"},
+                              "mesh": {"data_parallel": None, "model_parallel": 2}}))
+    ports: set = set()
+    while len(ports) < len(specs):  # a coordinator port each, distinct
+        ports.add(free_port())
+
+    def run_cli(spec, port):
+        label, ranks, extra = spec
+        cfg = json.loads(json.dumps(base))
+        cfg["training_args"].update(json.loads(json.dumps(extra)))
+        if "distributed" in extra:
+            cfg["training_args"]["distributed"]["coordinator_address"] = f"localhost:{port}"
+        t0 = time.perf_counter()
+        run, rows = train_cli(label, cfg, tmp, ranks)
+        return run, rows, time.perf_counter() - t0
+
     set_train_flags(True)
     try:
         results = {}
-        for label, ranks, extra in (
-                ("solo", 1, {}),
-                ("nccl1", 1, {"distributed": {"num_processes": 1, "backend": "nccl"}}),
-                ("gloo_dp2", 2, {"distributed": {"num_processes": 2, "backend": "gloo"}}),
-                ("gloo_tp2", 2, {"distributed": {"num_processes": 2, "backend": "gloo"},
-                                 "mesh": {"data_parallel": None, "model_parallel": 2}})):
-            cfg = json.loads(json.dumps(base))
-            cfg["training_args"].update(json.loads(json.dumps(extra)))
-            if "distributed" in extra:
-                cfg["training_args"]["distributed"]["coordinator_address"] = \
-                    f"localhost:{free_port()}"
-            t0 = time.perf_counter()
-            run, rows = train_cli(label, cfg, tmp, ranks)
-            wall = time.perf_counter() - t0
-            losses = [[r["loss"], r["score"], r["pen"]] for r in rows]
-            results[label] = dict(run=str(run), losses=losses, wall_s=wall)
-            log(f"  {label}: {ranks} process(es), {wall:.1f} s, steps {[r['step'] for r in rows]}, "
-                f"losses {[round(l[0], 6) for l in losses]}")
+        # Two runs at a time on the card (each run's arithmetic is its own, so
+        # the comparisons below hold; the walls are of runs sharing the card).
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for pair, pair_ports in ((specs[:2], sorted(ports)[:2]),
+                                     (specs[2:], sorted(ports)[2:])):
+                for (label, ranks, _), (run, rows, wall) in zip(
+                        pair, pool.map(run_cli, pair, pair_ports)):
+                    losses = [[r["loss"], r["score"], r["pen"]] for r in rows if "loss" in r]
+                    vals = [[r["val_loss"], r["val_score"], r["val_pen"]] for r in rows
+                            if "val_loss" in r]
+                    results[label] = dict(run=str(run), losses=losses, val=vals, wall_s=wall)
+                    log(f"  {label}: {ranks} process(es), {wall:.1f} s (beside another run), "
+                        f"steps {[r['step'] for r in rows if 'loss' in r]}, losses "
+                        f"{[round(l[0], 6) for l in losses]}, val {vals}")
+                    if len(vals) != 1 or not np.isfinite(vals).all():
+                        fail(f"multiprocess: {label} has no finite validation at step "
+                             f"{MP_STEPS}")
     finally:
         set_train_flags(False)
     solo = np.asarray(results["solo"]["losses"])
     if solo.shape != (MP_STEPS, 3) or not np.isfinite(solo).all():
         fail(f"multiprocess: bad solo losses {solo.tolist()}")
-    if results["nccl1"]["losses"] != results["solo"]["losses"]:
+    if (results["nccl1"]["losses"], results["nccl1"]["val"]) != (results["solo"]["losses"],
+                                                                 results["solo"]["val"]):
         fail("multiprocess: the NCCL world-size-1 run differs from the run without a group")
-    log("  (a) NCCL world size 1 == no process group, bit for bit")
+    log("  (a) NCCL world size 1 == no process group, bit for bit (losses and the replayed "
+        "validation)")
     for label in ("gloo_dp2", "gloo_tp2"):
         got = np.asarray(results[label]["losses"])
         rel = float(np.max(np.abs(got - solo) / np.abs(solo)))
@@ -1929,6 +2030,9 @@ def multiprocess_phase(tmp, report):
             fail(f"multiprocess: {label}'s run.log does not show the mesh {mesh}")
         if "steps_per_call auto is 1 under the gloo process group" not in run_log:
             fail(f"multiprocess: {label}'s run.log does not say that auto is 1 under gloo")
+        if "validation runs eagerly under the gloo process group" not in run_log:
+            fail(f"multiprocess: {label}'s run.log does not say that validation is eager "
+                 "under gloo")
         log(f"  (b) {label}: mesh {mesh}; max relative loss diff against the solo run {rel:.3g}")
         if got.shape != solo.shape or rel > 1e-4:
             fail(f"multiprocess: {label} losses differ from the solo run by {rel:.3g} relative")
@@ -2172,8 +2276,8 @@ def optin_phase(run, tmp, report):
         fail("eval_encoder_reuse: bad report")
     tools["eval_encoder_reuse"] = rep
     log("  tools/sweep.py:")
-    rows, ret, _ = tool_json(sweep.main, ["--device=cuda", "--batches=16,96", "--steps=20,60"])
-    if rows != ret or len(rows) != 4 or any(set(r) != TOOL_KEYS["sweep"] for r in rows):
+    rows, ret, _ = tool_json(sweep.main, ["--device=cuda", "--batches=96", "--steps=20,60"])
+    if rows != ret or len(rows) != 2 or any(set(r) != TOOL_KEYS["sweep"] for r in rows):
         fail("sweep: bad rows")
     tools["sweep"] = rows
     log("  tools/bench_hoist.py:")
@@ -2520,7 +2624,7 @@ def chunk_case(cfg, label, timed: bool) -> dict:
     the evaluations) and launch the train kernels alike. With `timed`, the
     rates in turns (eager, chunk, chunk, eager; CUDA events over 16 steps
     after the first 20) and one profiled chunk of 16 beside 4 eager steps."""
-    from dhg_torch.eval import evaluate
+    from dhg_torch.eval import evaluate, make_eval_fn
     from dhg_torch.tools.profile_sampler import profile_call
     from dhg_torch.train import Trainer, load_cache
 
@@ -2532,7 +2636,8 @@ def chunk_case(cfg, label, timed: bool) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         t = trainers[mode] = Trainer(cfg, device="cuda")
-        evals, rows, launches = [evaluate(t.model, val, batch_size=bs, seed=0)], [], {}
+        step = make_eval_fn(t.model)  # one a trainer, as train() holds one a run
+        evals, rows, launches = [evaluate(t.model, val, bs, 0, eval_step=step)], [], {}
         t0 = time.perf_counter()
         for first, k in ((1, 16), (17, 4)):
             reset_all_counts()
@@ -2543,7 +2648,8 @@ def chunk_case(cfg, label, timed: bool) -> dict:
             torch.cuda.synchronize()
             for name, n in kernel_launches().items():
                 launches[name] = launches.get(name, 0) + n
-            evals.append(evaluate(t.model, val, batch_size=bs, seed=0))
+            evals.append(evaluate(t.model, val, bs, 0, eval_step=step))
+        del step
         runs[mode] = dict(rows=torch.cat(rows), evals=evals, launches=launches,
                           wall_s=time.perf_counter() - t0,
                           peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
@@ -2574,7 +2680,7 @@ def chunk_case(cfg, label, timed: bool) -> dict:
     convs = 0 if cfg.training_args.dropout else 6
     want = (9 * TRAIN_STEPS, convs * TRAIN_STEPS) if flags else (0, 0)
     counted = (got.get("fused_attention", 0), got.get("fused_conv_block", 0))
-    out = {"capture_s": graph.graph.capture_s, "replay_launches": graph.graph.launches,
+    out = {"capture_s": graph.graph.body.capture_s, "replay_launches": graph.graph.body.launches,
            "launches": got, **{f"{m}_{k}": runs[m][k] for m in runs
                                for k in ("wall_s", "peak_gib")},
            "evals": [list(map(float, e)) for e in runs["graph"]["evals"]]}
@@ -2663,7 +2769,7 @@ def dead_graph_case(cfg) -> dict:
         f"finite {bool(torch.isfinite(rows).all())}")
     if not ok:
         fail(f"chunks: the step capture beside a dead graph failed (collector {seen})")
-    return {"collector_warm_up_capture": seen, "capture_s": t.graph.capture_s}
+    return {"collector_warm_up_capture": seen, "capture_s": t.graph.body.capture_s}
 
 
 def chunk_phase(report):
@@ -2710,7 +2816,7 @@ def same_forward_case(label: str, c: int = 7) -> dict:
         fwd = t.forward_chunk(c, 1)[0]  # a replay
         row = t.train_chunk(c, 1)[0]
         torch.cuda.synchronize()
-        replayed = t.forward_graph.graph is not None
+        replayed = t.forward_graph.body.graph is not None
     finally:
         t.graph = t.forward_graph = None
     err = float((fwd - row).abs().max())
@@ -2795,6 +2901,217 @@ def profile_phase(report):
     report["profile"] = out
     if out["phase_s"] > PROFILE_PHASE_S:
         fail(f"profile: the phase took {out['phase_s']:.1f} s (limit {PROFILE_PHASE_S:.0f} s)")
+
+
+def distill_graph_case(ds, data, label, timed: bool, profiled: bool) -> dict:
+    """Phase 8d's distill case on two Distillers of one teacher ({"eager":
+    ..., "graph": ...}), each from a fresh student (init_state): eager
+    `step` against make_step_fn's step (the first step eager, then the
+    captured graph replayed) on the same GRAPH_DISTILL_STEPS draws. Fatal
+    unless student params, Adam moments and the rows are equal bit for bit
+    and the train kernels launch alike (27 attention and 18 conv-block
+    launches a step with the flags, none without). With `timed`, steps/s in
+    turns (eager, graph, graph, eager; CUDA events over GRAPH_TIMED_STEPS
+    steps); with `profiled`, a profiled window of GRAPH_PROFILED_STEPS
+    replayed steps beside 4 eager ones."""
+    from dhg_torch.tools.profile_sampler import profile_call
+
+    t_case = time.perf_counter()
+    runs, steps = {}, {}
+    draws = [ds["eager"].draw(torch.Generator("cuda").manual_seed(c), data.size,
+                              data.strokes.shape[1]) for c in range(GRAPH_DISTILL_STEPS)]
+    for mode in ("eager", "graph"):
+        d = ds[mode]
+        d.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if mode == "eager":
+            steps[mode] = lambda x, d=d: d.step(data.arrays, x)
+        else:
+            steps[mode] = d.make_step_fn(data)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        rows = torch.stack([steps[mode](x) for x in draws])
+        torch.cuda.synchronize()
+        runs[mode] = dict(rows=rows, launches={k: v for k, v in kernel_launches().items() if v},
+                          wall_s=time.perf_counter() - t0,
+                          peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30)
+    eager, graph = ds["eager"], ds["graph"]
+    if graph.graph is None or graph.graph.graph is None:
+        fail(f"distill graph {label}: no step graph was captured")
+    differ = [f"{group} {name}" for group, a, b in (
+        ("param", eager.opt.params, graph.opt.params), ("mu", eager.opt.mu, graph.opt.mu),
+        ("nu", eager.opt.nu, graph.opt.nu)) for name, x, y in zip(eager.opt.names, a, b)
+        if not torch.equal(x, y)]
+    n = GRAPH_DISTILL_STEPS
+    flags = os.environ.get("DHG_FUSED_ATTENTION") == "1"
+    want = {"fused_attention": 27 * n, "fused_conv_block": 18 * n} if flags else {}
+    same = {"rows": runs["graph"]["rows"].shape == (n, 3)
+            and torch.equal(runs["graph"]["rows"], runs["eager"]["rows"]),
+            "state": not differ,
+            "launches": runs["graph"]["launches"] == runs["eager"]["launches"] == want}
+    out = {"capture_s": graph.graph.capture_s, "replay_launches": graph.graph.launches,
+           "launches": runs["graph"]["launches"], "equal": same,
+           **{f"{m}_{k}": runs[m][k] for m in runs for k in ("wall_s", "peak_gib")}}
+    log(f"  {label}: {n} steps eager {runs['eager']['wall_s']:.2f} s, first eager then replayed "
+        f"{runs['graph']['wall_s']:.2f} s (capture {out['capture_s']:.2f} s); peak above the "
+        f"distiller's start {runs['eager']['peak_gib']:.3f} / {runs['graph']['peak_gib']:.3f} "
+        f"GiB; equal bit for bit {same}; launches {runs['graph']['launches']} (want {want})")
+    if not all(same.values()):
+        fail(f"distill graph {label}: the replayed steps differ from the eager ones: {same}; "
+             f"{len(differ)} state tensors differ, first {differ[:6]}")
+    if timed:
+        k = GRAPH_TIMED_STEPS
+        rates = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            _, ms = event_ms(lambda: [steps[mode](x) for x in draws[:k]])
+            rates[mode].append(k / (ms / 1e3))
+        out["rates"] = rates
+        log(f"  {label}: steps/s eager {', '.join(f'{v:.3f}' for v in rates['eager'])}, "
+            f"replayed {', '.join(f'{v:.3f}' for v in rates['graph'])}")
+    if profiled:
+        n_prof = {"graph": GRAPH_PROFILED_STEPS, "eager": 4}
+        prof = {m: profile_call(lambda m=m: [steps[m](x) for x in draws[:n_prof[m]]])
+                for m in ("graph", "eager")}
+        for mode, r in prof.items():
+            log(f"  {label} {mode}: profiled {n_prof[mode]} steps: wall {r['wall_ms']:.1f} ms, "
+                f"device {r['device_ms']:.1f} ms, idle share {r['idle_share']:.3f}, "
+                f"{r['n_kernel_launches']} kernels")
+        out["profile"] = prof
+    ds["graph"].graph = None  # its pool back
+    out["case_s"] = time.perf_counter() - t_case
+    log(f"  {label}: case {out['case_s']:.1f} s")
+    return out
+
+
+def eval_inputs(cache, sl: slice, seed: int):
+    """`evaluate`'s inputs for the cache rows `sl`, its noise included."""
+    s3 = torch.as_tensor(cache.strokes[sl], dtype=torch.float32).cuda()
+    text = torch.as_tensor(np.asarray(cache.text[sl], np.int64)).cuda()
+    style = torch.as_tensor(cache.style[sl], dtype=torch.float32).cuda()
+    gen = torch.Generator("cuda").manual_seed(seed * 1_000_003 + sl.start)
+    return s3, text, style, torch.randn(s3[..., :2].shape, generator=gen, device="cuda")
+
+
+def eval_graph_case(model, cache, label) -> tuple[dict, object]:
+    """Phase 8d's eval case: `evaluate` through make_eval_fn (batch 96 over
+    GRAPH_EVAL_ROWS rows: two full batches and a tail, two keys) against
+    eager `eval_batch` on the same inputs. Fatal unless every batch is
+    equal bit for bit, the mean is the eager one, each key captured once and
+    the train kernels launch alike (9 attention and 6 conv-block launches a
+    level with the flags, none without). Then eager against replayed ms for
+    a batch of 96, in turns. Returns (the case, the eval step)."""
+    from dhg_torch.eval import EvalGraphs, eval_batch, eval_levels, evaluate, make_eval_fn
+
+    n, levels = len(cache), eval_levels()
+    step, rows = make_eval_fn(model), []
+
+    def recorded(*args):
+        rows.append(step(*args))
+        return rows[-1]
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    got = evaluate(model, cache, batch_size=TRAIN_B, seed=0, eval_step=recorded)
+    wall = time.perf_counter() - t0
+    counted = {k: v for k, v in kernel_launches().items() if v}
+    batches = [eval_inputs(cache, slice(i, min(i + TRAIN_B, n)), 0) for i in range(0, n, TRAIN_B)]
+    reset_all_counts()
+    want = [eval_batch(model, *b, levels) for b in batches]
+    eager_counted = {k: v for k, v in kernel_launches().items() if v}
+    forwards = len(batches) * len(levels)
+    flags = os.environ.get("DHG_FUSED_ATTENTION") == "1"
+    expected = {"fused_attention": 9 * forwards, "fused_conv_block": 6 * forwards} if flags else {}
+    mean = np.average(np.stack([w.cpu().numpy() for w in want]), axis=0,
+                      weights=[b[0].shape[0] for b in batches])
+    same = {"graphs": isinstance(step, EvalGraphs) and step.captures == len(step.graphs) == 2,
+            "batches": len(rows) == len(want) and all(torch.equal(a, b)
+                                                      for a, b in zip(rows, want)),
+            "mean": np.array_equal(got, mean),
+            "launches": counted == eager_counted == expected}
+    ms = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        call = (lambda: eval_batch(model, *batches[0], levels)) if mode == "eager" else (
+            lambda: step(*batches[0]))
+        ms[mode].append(event_ms(lambda: [call() for _ in range(3)])[1] / 3)
+    out = {"value": [float(v) for v in got], "wall_s": wall, "launches": counted, "equal": same,
+           "capture_s": [e[0].capture_s for e in step.graphs.values()], "batch_ms": ms}
+    log(f"  {label}: evaluate over {n} rows at batch {TRAIN_B} ({len(batches)} batches, "
+        f"{step.captures} captures, {out['capture_s']} s) {wall:.2f} s; equal to eager "
+        f"eval_batch {same}; launches {counted} (want {expected}); a batch of {TRAIN_B}: eager "
+        f"{', '.join(f'{v:.2f}' for v in ms['eager'])} ms, replayed "
+        f"{', '.join(f'{v:.2f}' for v in ms['graph'])} ms")
+    if not all(same.values()):
+        fail(f"eval graph {label}: the replayed eval differs from eager eval_batch: {same}")
+    return out, step
+
+
+def graph_steps_phase(report, teacher_cfg, teacher):
+    """Phase 8d: dhg's jitted distill step and eval step as CUDA graphs on
+    the train phase's model (see the module docstring)."""
+    import copy
+
+    from dhg_torch.config import DLConfig, update_config
+    from dhg_torch.data.pipeline import DeviceDataset, synthetic_cache
+    from dhg_torch.distill import Distiller
+    from dhg_torch.eval import eval_batch, eval_levels
+    from dhg_torch.train import load_cache
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def cfg_in(dtype):
+        return DLConfig(update_config(copy.deepcopy(teacher_cfg.to_dict()),
+                                      {"training_args.compute_dtype": dtype}))
+
+    data = DeviceDataset.from_cache(load_cache(cfg_in("float32"), "train", "cuda"), "cuda")
+    pairs = {dtype: {mode: Distiller(cfg_in(dtype), teacher, lr=5e-5, device="cuda")
+                     for mode in ("eager", "graph")} for dtype in ("float32", "bfloat16")}
+    try:
+        for label, dtype, flags, timed, profiled in (
+                ("f32 plain", "float32", False, True, False),
+                ("f32 kernels", "float32", True, True, True),
+                ("bf16 kernels", "bfloat16", True, False, False)):
+            set_train_flags(flags)
+            out[f"distill {label}"] = distill_graph_case(pairs[dtype], data, label, timed,
+                                                         profiled)
+            torch.cuda.empty_cache()
+        da = teacher_cfg.dataset_args
+        cache = synthetic_cache(n=GRAPH_EVAL_ROWS, max_seq_len=da.max_seq_len or 480,
+                                max_text_len=da.max_text_len or 50, seed=777)
+        # The bf16 teacher (its weights, eval mode, no grad) is the model scored.
+        model = pairs["bfloat16"]["eager"].teacher
+        for label in ("plain", "kernels"):
+            set_train_flags(label == "kernels")
+            out[f"eval bf16 {label}"], step = eval_graph_case(model, cache, f"eval bf16 {label}")
+        # With the flags on: a weight changed in place is read by the next
+        # replay; a weight whose storage is replaced makes the key capture again.
+        batch, levels = eval_inputs(cache, slice(0, TRAIN_B), 0), eval_levels()
+        first, caps = step(*batch), step.captures
+        w = model.output_dense.weight
+        with torch.no_grad():
+            w.mul_(1.5)
+        moved = step(*batch)
+        in_place = (step.captures == caps and not torch.equal(moved, first)
+                    and torch.equal(moved, eval_batch(model, *batch, levels)))
+        with torch.no_grad():
+            w.data = w.data * 0.5
+        again = step(*batch)
+        replaced = (step.captures == caps + 1
+                    and torch.equal(again, eval_batch(model, *batch, levels)))
+        log(f"  eval: a weight changed in place read by the replay {in_place}; a replaced "
+            f"storage captured again {replaced}")
+        if not (in_place and replaced):
+            fail(f"eval graph: in place read {in_place}, replaced storage captured {replaced}")
+        out["eval weights"] = {"in_place_read": in_place, "replaced_captured": replaced}
+        del step, model, data, pairs
+    finally:
+        set_train_flags(False)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  distill and eval graphs phase {out['phase_s']:.1f} s (budget {GRAPH_PHASE_S:.0f} s)")
+    report["graph_steps"] = out
 
 
 def kernel_row(name, cases, timed, launches, at):
@@ -2925,12 +3242,20 @@ def main() -> None:
         log("== converters: export_torch_checkpoint, convert_torch_checkpoint (bare, module.) "
             "and infer on its output, convert_torchvision_mnv2 into init_style_extractor")
         converters_phase(run, tmp, style_png, infer_strokes, report)
+        from dhg_torch.config import DLConfig
+
+        # Phase 8d's teacher: the train run's config and model_final, in f32.
+        teacher_cfg = DLConfig.load(run / "config.yml")
+        teacher = DiffusionModel.load(run / "model_final", dtype=None, device="cpu").state_dict()
     log("== train rate: kernels against the plain-op path")
     train_rate_phase(report)
     log("== chunks: steps_per_call's replayed chunks against eager steps, flags off and on")
     chunk_phase(report)
     log("== profile: dhg's train-step profile (tools/profile_train.py), flags off and on")
     profile_phase(report)
+    log("== distill and eval graphs: make_step_fn and make_eval_fn replayed against eager, "
+        "flags off and on")
+    graph_steps_phase(report, teacher_cfg, teacher)
 
     def timed(name, keep):
         return [r for r in cases if r["kernel"] == name and keep(r)]

@@ -44,6 +44,17 @@ Python's cyclic garbage collected before and the collector held off until
 it ends. A failed capture raises; nothing falls back to the eager path.
 
 CUDA only: on the CPU there is no graph, and `generate` runs `_sample`.
+
+The capture itself is shared with the port's other graphs.
+`capture_counted` is one capture of a body with its modules' cast caches
+empty before and after and its launch counts taken back; `SamplerGraphs`
+and `CapturedBody` both go through it. `CapturedBody` is one body on its
+static inputs, taken eagerly on a side stream at its first call (so that
+what a first call makes lazily, the kernel library, cuBLAS's handles and
+workspaces, autograd's state, is made outside the capture), then captured
+and replayed with no fallback: the train step and its forward
+(train.py::StepGraph), the distill step (distill.py::Distiller.make_step_fn)
+and the eval step (eval.py::make_eval_fn).
 """
 
 from __future__ import annotations
@@ -86,6 +97,78 @@ def capture(graph: torch.cuda.CUDAGraph, pool=None):
     finally:
         if enabled:
             gc.enable()
+
+
+def storage_state(model) -> tuple:
+    """`model`'s parameter and buffer storage (data_ptr) and its training
+    flag: a graph captured on other storage reads the old weights, and one
+    captured in the other mode runs the other path."""
+    return tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
+                                                       model.buffers())) + (model.training,)
+
+
+def capture_counted(graph: torch.cuda.CUDAGraph, body, modules, pool=None):
+    """`body()` captured into `graph` through `capture`, with the cast caches
+    of `modules` dropped before and after: the casts a no-grad forward
+    caches are then made inside the graph, from the parameters as they are
+    at each replay, and no eager call later reads a cast that lives in the
+    graph's pool. The capture launches nothing, so the launch counts the
+    kernel wrappers took while it ran are taken back. Returns (body's
+    output, the kernel launches a replay makes, host seconds)."""
+    for m in modules:
+        clear_cast_caches(m)
+    before, t0 = launch_counts(), time.perf_counter()
+    try:
+        with capture(graph, pool):
+            out = body()
+    finally:
+        for m in modules:
+            clear_cast_caches(m)  # casts the capture cached live in the graph's pool
+        launches = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        add_launches({k: -v for k, v in launches.items()})
+    return out, launches, time.perf_counter() - t0
+
+
+class CapturedBody:
+    """`body(*inputs)` as one CUDA graph on static inputs, which the caller
+    refills in place before each `run`. The first `run` takes the body
+    eagerly on a side stream and returns its result, then captures it
+    (capture_counted, over `modules`' cast caches, into `pool`: a private
+    one by default); every later `run` replays the graph, adds the launches
+    it makes (kernels/runtime.py::add_launches) and returns its static
+    output, which the next replay of a graph of the same pool overwrites. A
+    failed capture or replay raises: nothing falls back to the eager body."""
+
+    def __init__(self, body, inputs: tuple, modules, device: str | torch.device = "cuda",
+                 pool=None):
+        self.body, self.inputs = body, tuple(inputs)
+        self.modules, self.device, self.pool = tuple(modules), torch.device(device), pool
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out = None  # the graph's static output
+        self.launches: dict[str, int] = {}  # kernel launches a replay makes
+        self.capture_s: float | None = None  # host seconds of the capture
+
+    def run(self):
+        if self.graph is None:
+            return self._warm_up_and_capture()
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.out
+
+    def _warm_up_and_capture(self):
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            first = self.body(*self.inputs)
+        current.wait_stream(side)
+        if isinstance(first, torch.Tensor):
+            first.record_stream(current)  # the caller reads it on `current`
+        graph = torch.cuda.CUDAGraph()
+        self.out, self.launches, self.capture_s = capture_counted(
+            graph, lambda: self.body(*self.inputs), self.modules, self.pool)
+        self.graph = graph
+        return first
 
 
 class SamplerKey(NamedTuple):
@@ -218,11 +301,6 @@ class SamplerGraphs:
         return beta_table(N_STEPS if key.n_steps is None else key.n_steps,
                           key.schedule or "strided", str(self.device))
 
-    def _state(self) -> tuple:
-        model = self.model
-        return tuple(t.data_ptr() for t in itertools.chain(model.parameters(),
-                                                           model.buffers())) + (model.training,)
-
     def _replay(self, key, text, style, x_init, noises, guidance_scale, warm_up) -> _Graph:
         """The key's graph, replayed on these inputs (captured first if the
         key is new or the model's parameters moved). The lock is held."""
@@ -231,7 +309,7 @@ class SamplerGraphs:
         n = self._beta(key).shape[0]
         if noises.shape[0] != n:
             raise ValueError(f"{noises.shape[0]} noise draws for {n} steps")
-        state = self._state()
+        state = storage_state(self.model)
         entry = self._graphs.get(key)
         if entry is not None and entry.state != state:
             del self._graphs[key]  # the weights moved: this graph reads the old ones
@@ -270,15 +348,6 @@ class SamplerGraphs:
 
         if warm_up:
             body()  # eager: builds what is made lazily outside the capture
-        clear_cast_caches(model)
-        before, t0 = launch_counts(), time.perf_counter()
-        try:
-            with capture(entry.graph, self.pool):
-                entry.out = body()
-        finally:
-            clear_cast_caches(model)  # casts the capture cached live in the graph's pool
-            entry.launches = {k: v - before[k] for k, v in launch_counts().items()
-                              if v != before[k]}
-            add_launches({k: -v for k, v in entry.launches.items()})
-        entry.capture_s = time.perf_counter() - t0
+        entry.out, entry.launches, entry.capture_s = capture_counted(entry.graph, body, (model,),
+                                                                     self.pool)
         self.captures += 1

@@ -27,6 +27,15 @@ dhg's (its model.apply gets no dropout rng): the student is in eval mode
 while autograd records, so TextStyleEncoder's 0.3 style dropout stays off.
 The teacher runs under torch.no_grad, so its casts are cached once.
 
+On CUDA `distill` runs its steps through make_step_fn, dhg's jitted step:
+the first step is taken eagerly on a side stream, then the step's device
+work (Distiller._step) is captured as one CUDA graph (core/graphs.py
+CapturedBody, over the teacher's and the student's cast caches), and every
+later step copies its draws into the graph's static buffers, stages the
+optimizer's scalars and replays it, with no host sync between steps. A
+replayed step equals the eager `step` bit for bit. On the CPU the steps run
+eagerly, one `step` after another.
+
 dtype: a Distiller built directly computes in the config's compute_dtype;
 the CLI distills and probes in float32 whatever the config says, as dhg's
 main does (it swaps in load_model's float32 model).
@@ -49,6 +58,7 @@ import torch
 from dhg_torch import resolve_device
 from dhg_torch.checkpoint import resolve_checkpoint, save_checkpoint
 from dhg_torch.config import DLConfig, parse_cli_kwargs, update_config
+from dhg_torch.core.graphs import CapturedBody
 from dhg_torch.core.sampling import ddim_step
 from dhg_torch.core.schedule import N_STEPS, get_alpha_set, halved_beta_set
 from dhg_torch.data.pipeline import DeviceDataset, gather_batch
@@ -107,6 +117,7 @@ class Distiller:
         self.a_in = abar_t[1::2]
         self.a_mid = abar_t[0::2]
         self.a_out = levels[0::2][: self.student_steps]
+        self.graph: CapturedBody | None = None  # make_step_fn's, on CUDA
         self.init_state()
 
     # -- state ----------------------------------------------------------------
@@ -128,6 +139,13 @@ class Distiller:
 
     def step(self, arrays, d: DistillDraws) -> torch.Tensor:
         """One optimizer update; returns [3] (total, score, pen) on the device."""
+        self.opt.stage()
+        return self._step(arrays, d)
+
+    def _step(self, arrays, d: DistillDraws) -> torch.Tensor:
+        """step's device work, after its host staging (the optimizer's
+        scalars): no host sync and no host value that changes from step to
+        step, so make_step_fn captures it."""
         strokes3, text, style = gather_batch(arrays, d.idx)
         x0 = strokes3[..., :2]
         at, am, ar = self.a_in[d.i], self.a_mid[d.i], self.a_out[d.i]  # [bs, 1]
@@ -152,33 +170,65 @@ class Distiller:
         pen_l = (((pen_pred - pen_t) ** 2).mean(dim=-1) * at[:, 0]).mean()
         total = score + pen_l
         total.backward()
-        grads = [p.grad for p in self.opt.params]
-        self.opt.step(grads)
+        self.opt.update([p.grad for p in self.opt.params])
         for p in self.opt.params:
             p.grad = None
         return torch.stack([total, score, pen_l]).detach()
 
+    def make_step_fn(self, data: DeviceDataset):
+        """step(d) -> [3] (total, score, pen) on the device: one update of
+        the current student from draws `d` (dhg's make_step_fn). On CUDA the
+        first call takes its step eagerly and captures `_step` on copies of
+        its draws (self.graph); later calls copy their draws in, stage the
+        optimizer's scalars and replay, and return a copy of the graph's
+        row. The graph reads this student and optimizer: build a new step
+        after init_state. On the CPU each call is `step`."""
+        arrays = data.arrays
+        if self.device.type != "cuda":
+            return lambda d: self.step(arrays, d)
+        graph = None
+
+        def step(d: DistillDraws) -> torch.Tensor:
+            nonlocal graph
+            if graph is None:
+                draws = DistillDraws(*(v.clone() for v in d))
+                graph = self.graph = CapturedBody(self._step, (arrays, draws),
+                                                  (self.teacher, self.student), self.device)
+            else:
+                for buf, v in zip(graph.inputs[1], d):
+                    buf.copy_(v)
+            self.opt.stage()
+            return graph.run().clone()
+
+        return step
+
     # -- the loop ---------------------------------------------------------------
 
     def distill(self, data: DeviceDataset, steps: int, logger, log_freq: int = 50) -> dict:
-        """`steps` updates from a fresh student; returns its state_dict. Draws
-        come from one generator seeded seed + 99; the loss scalars are
-        fetched once per log line."""
+        """`steps` updates from a fresh student through make_step_fn; returns
+        its state_dict. Draws come from one generator seeded seed + 99; the
+        loss scalars are fetched once per log line. The step's graph is
+        dropped at the end: the next init_state makes a student it does not
+        read."""
         self.init_state()
+        step_fn = self.make_step_fn(data)
         gen = torch.Generator(self.device).manual_seed(self.seed + 99)
-        arrays, seq_len = data.arrays, data.strokes.shape[1]
+        seq_len = data.strokes.shape[1]
         s = time.time()
         window: list[torch.Tensor] = []
-        for c in range(1, steps + 1):
-            window.append(self.step(arrays, self.draw(gen, data.size, seq_len)))
-            if c % log_freq == 0 or c == steps:
-                vals = torch.stack(window).mean(0).tolist()
-                logger.info(
-                    f"Distill {self.teacher_steps}->{self.student_steps} | "
-                    f"Step {c} | Loss: {vals[0]:.4f} | Score: {vals[1]:.4f} | "
-                    f"Pen: {vals[2]:.4f} | Time: {time.time() - s:.3f} sec"
-                )
-                window = []
+        try:
+            for c in range(1, steps + 1):
+                window.append(step_fn(self.draw(gen, data.size, seq_len)))
+                if c % log_freq == 0 or c == steps:
+                    vals = torch.stack(window).mean(0).tolist()
+                    logger.info(
+                        f"Distill {self.teacher_steps}->{self.student_steps} | "
+                        f"Step {c} | Loss: {vals[0]:.4f} | Score: {vals[1]:.4f} | "
+                        f"Pen: {vals[2]:.4f} | Time: {time.time() - s:.3f} sec"
+                    )
+                    window = []
+        finally:
+            self.graph = None
         return self.student.state_dict()
 
 

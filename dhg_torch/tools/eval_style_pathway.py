@@ -9,11 +9,12 @@ dhg/tools/eval_style_pathway.py)
    (style_from_image with the run's dataset_args.style_weights) and with
    zero style, each call from a generator seeded 42 afresh, so the three
    share their noise; pairwise stroke MSE. A dead pathway gives ~0.
-2. Conditional validation loss: eval.eval_batch over the run's validation
-   cache (up to 256 rows) with each row's true style, zero style and the
-   styles shuffled across rows (RandomState(0)), all three on ONE noise
-   draw (a generator seeded 7, as dhg's one key). true < zero and true <
-   shuffled means the model uses the style.
+2. Conditional validation loss: one eval.make_eval_fn step (on CUDA one
+   captured graph, replayed for the second and third style) over the run's
+   validation cache (up to 256 rows) with each row's true style, zero
+   style and the styles shuffled across rows (RandomState(0)), all three
+   on ONE noise draw (a generator seeded 7, as dhg's one key). true < zero
+   and true < shuffled means the model uses the style.
 
 `tree` defaults to the run config's experiment.data_dir. Prints one JSON
 dict with dhg's keys, plus `backend`.
@@ -36,10 +37,10 @@ EPS_SEED = 7
 
 def val_losses(model, cache, eps: torch.Tensor | None = None,
                device: str | torch.device = "cuda") -> dict[str, np.ndarray]:
-    """eval_batch's [total, score, pen] with true, zero and shuffled style
+    """make_eval_fn's [total, score, pen] with true, zero and shuffled style
     over the cache's first min(256, len) rows, all on the same `eps` (default
     a normal draw from a generator seeded 7, shaped like the rows' deltas)."""
-    from dhg_torch.eval import eval_batch, eval_levels
+    from dhg_torch.eval import make_eval_fn
 
     dev = torch.device(device)
     n = min(256, len(cache))
@@ -50,8 +51,8 @@ def val_losses(model, cache, eps: torch.Tensor | None = None,
     if eps is None:
         eps = torch.randn(strokes[..., :2].shape, generator=torch.Generator(dev).manual_seed(
             EPS_SEED), device=dev)
-    levels = eval_levels().to(dev)
-    return {name: eval_batch(model, strokes, text, sty, eps.to(dev), levels).cpu().numpy()
+    eval_step = make_eval_fn(model)
+    return {name: eval_step(strokes, text, sty, eps.to(dev)).cpu().numpy()
             for name, sty in [("true", style_true), ("zero", torch.zeros_like(style_true)),
                               ("shuffled", style_true[perm])]}
 

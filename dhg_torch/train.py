@@ -60,6 +60,13 @@ step's all-reduces too; train() drops it at its end, so that no captured
 collective outlives the group main() then destroys. Under a process group
 whose backend is not NCCL a CUDA chunk takes one step (see
 steps_per_call); profile_dir forces one step a chunk, as in dhg.
+
+The val_freq passes go through one eval step a run (Trainer.eval_fn,
+eval.py::make_eval_fn, as dhg's Trainer caches its jitted one): on CUDA
+each batch shape replays its captured graph from its second batch on, and
+train() drops the step with the step graph at its end. Under a process
+group whose backend is not NCCL they run eagerly on CUDA, which run.log
+says once.
 """
 
 from __future__ import annotations
@@ -82,12 +89,11 @@ from dhg_torch import resolve_device
 from dhg_torch.checkpoint import AsyncSaver, load_checkpoint, save_checkpoint
 from dhg_torch.config import DLConfig, config_entrypoint, object_from_dict, parse_cli_kwargs
 from dhg_torch.core.losses import diffusion_loss
-from dhg_torch.core.graphs import capture
+from dhg_torch.core.graphs import CapturedBody
 from dhg_torch.core.schedule import alphas_from_draws, get_alpha_set
 from dhg_torch.data.pipeline import (DeviceDataset, augment_matrices, augment_strokes,
                                      gather_batch, synthetic_cache)
 from dhg_torch.models.denoiser import DiffusionModel
-from dhg_torch.kernels.runtime import add_launches, launch_counts
 from dhg_torch.ops.basic import clear_cast_caches, dropout_rows
 from dhg_torch.parallel import distributed as dist
 from dhg_torch.parallel.mesh import Mesh, make_mesh
@@ -400,6 +406,7 @@ class Trainer:
         self._gen = torch.Generator(self.device)
         self.graph: StepGraph | None = None
         self.forward_graph: StepGraph | None = None  # forward_chunk's
+        self._eval_step = None  # eval_fn's
 
     def load_dataset(self) -> DeviceDataset:
         """The train cache on the device. With several processes rank 0
@@ -575,6 +582,16 @@ class Trainer:
             g.copy_(part.view_as(g))
         return flat[:3]
 
+    def eval_fn(self):
+        """The validation step (eval.py::make_eval_fn), built once and kept
+        until train() ends: a step built per validation boundary would
+        capture its graphs anew each time, as dhg's would recompile."""
+        if self._eval_step is None:
+            from dhg_torch.eval import make_eval_fn
+
+            self._eval_step = make_eval_fn(self.model)
+        return self._eval_step
+
     # -- state -----------------------------------------------------------------
 
     def _full(self, sd):
@@ -650,6 +667,9 @@ class Trainer:
         prof = None
         backend = tdist.get_backend() if tdist.is_initialized() else None
         k_max = steps_per_call(ta.steps_per_call, self.device, backend, ta.profile_dir, logger)
+        if val_cache is not None and self.device.type == "cuda" and backend not in (None, "nccl"):
+            logger.info(f"validation runs eagerly under the {backend} process group (a CUDA "
+                        "graph cannot capture its collectives)")
         count = start
         try:
             for k in chunk_sizes(start, ta.steps, k_max, ta.save_freq,
@@ -691,7 +711,7 @@ class Trainer:
                     from dhg_torch.eval import evaluate
 
                     v = evaluate(self.model, val_cache, batch_size=min(self.batch_size, len(val_cache)),
-                                 seed=self.seed)
+                                 seed=self.seed, eval_step=self.eval_fn())
                     logger.info(f"Step {count + 1} | Val Loss: {v[0]:.3f} | "
                                 f"Val Score: {v[1]:.3f} | Val Pen: {v[2]:.3f}")
                     record({"step": count + 1, "val_loss": float(v[0]),
@@ -718,9 +738,9 @@ class Trainer:
             if prof is not None:  # the run ended inside the window: no trace, as in dhg
                 prof.stop()
             self.saver.wait()
-            # Its pool back, and no captured collective left to hold the
+            # Their pools back, and no captured collective left to hold the
             # process group's communicator when the group is destroyed.
-            self.graph = None
+            self.graph = self._eval_step = None
 
     def _start_profile(self) -> torch.profiler.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -748,40 +768,32 @@ class StepGraph:
     (Trainer._forward: no grad, no update), and `run` stages no optimizer
     scalars.
 
-    The first `run` takes its step eagerly, on a side stream, on the static
-    draw buffers the graph then reads: that real step builds everything made
-    lazily (the kernel library, cuBLAS's handles and workspaces, autograd's
-    state) outside the capture, as core/graphs.py does, and the capture goes
-    through its `capture` (no garbage collection inside). The capture that
-    follows launches nothing, so the launch counts the kernel wrappers took
-    while it ran are taken back, and every replay adds them. Before a replay
-    the host copies the step's draws into the buffers, stages the
-    optimizer's scalars (Optimizer.stage) and seeds the device's default
-    generator with the step's dropout seed, whose seed and offset the replay
-    reads. A forward-only capture starts with the cast caches empty, so the
-    weights' casts, which a no-grad forward caches, are made inside the
-    graph and every replay reads the params as they are. A failure to
-    capture or replay raises: no step falls back to the eager path on a
+    The graph is a core/graphs.py `CapturedBody` over the model's cast
+    caches, whose static input is a copy of the first step's draws: the
+    first `run` takes its step eagerly on a side stream, on those buffers,
+    then captures; later runs replay. Before each the host copies the
+    step's draws into the buffers, stages the optimizer's scalars
+    (Optimizer.stage) and seeds the device's default generator with the
+    step's dropout seed, whose seed and offset the replay reads. A failure
+    to capture or replay raises: no step falls back to the eager path on a
     card.
     """
 
     def __init__(self, trainer: Trainer, forward_only: bool = False):
         self.trainer = trainer
         self.forward_only = forward_only
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.draws: Draws | None = None
-        self.out: torch.Tensor | None = None  # the graph's [3] losses
-        self.launches: dict[str, int] = {}  # kernel launches a replay makes
-        self.capture_s: float | None = None  # host seconds of the capture
+        self.body: CapturedBody | None = None
 
     def run(self, d: Draws, row: torch.Tensor) -> None:
         """Take the step of draws `d`; its [3] losses go to `row` (on the
         device, in stream order)."""
         t = self.trainer
-        if self.draws is None:
-            self.draws = Draws(*(None if v is None else v.clone() for v in d[:6]))
+        if self.body is None:
+            draws = Draws(*(None if v is None else v.clone() for v in d[:6]))
+            self.body = CapturedBody(t._forward if self.forward_only else t._step, (draws,),
+                                     (t.model,), t.device)
         else:
-            for buf, v in zip(self.draws[:6], d[:6]):
+            for buf, v in zip(self.body.inputs[0][:6], d[:6]):
                 if buf is not None:
                     buf.copy_(v)
         if not self.forward_only:
@@ -789,32 +801,7 @@ class StepGraph:
         if d.dropout_seed is not None:
             with torch.cuda.device(t.device):
                 torch.cuda.manual_seed(d.dropout_seed)
-        if self.graph is None:
-            self._warm_up_and_capture(row)
-            return
-        self.graph.replay()
-        add_launches(self.launches)
-        row.copy_(self.out)
-
-    def _warm_up_and_capture(self, row: torch.Tensor) -> None:
-        t = self.trainer
-        body = t._forward if self.forward_only else t._step
-        current, side = torch.cuda.current_stream(t.device), torch.cuda.Stream(t.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            row.copy_(body(self.draws))
-        current.wait_stream(side)
-        clear_cast_caches(t.model)
-        before, t0 = launch_counts(), time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with capture(graph):
-            self.out = body(self.draws)
-        self.capture_s = time.perf_counter() - t0
-        clear_cast_caches(t.model)  # casts the capture cached live in the graph's pool
-        after = launch_counts()
-        self.launches = {k: v - before[k] for k, v in after.items() if v != before[k]}
-        add_launches({k: -v for k, v in self.launches.items()})
-        self.graph = graph
+        row.copy_(self.body.run())
 
 
 def steps_per_call(value, device, backend: str | None = None, profile_dir=None,

@@ -105,9 +105,8 @@ GAPS = {
         ("model", "teacher_params", "student_params"), ("teacher", "student"),
         "two torch models, where dhg passes one flax module and two param trees"),
     "eval.py::evaluate": Gap(
-        ("eval_step",), ("n_levels",),
-        "dhg passes a jitted step to spare a recompile, which the port does not have; the port "
-        "takes evaluate_checkpoint's n_levels"),
+        (), ("n_levels",), "the port takes evaluate_checkpoint's n_levels, for the step it builds "
+                           "when it is given none"),
     "inference.py::generate": Gap((), (), LAST_BY_KEYWORD, any_order=True),
     "inference.py::sample_lines": Gap((), (), LAST_BY_KEYWORD, any_order=True),
     "kernels/fused_bottleneck.py::fused_bottleneck": Gap(("neg_mask",), ("neg",), NEG),

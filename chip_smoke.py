@@ -116,7 +116,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
   7d. iam      — the IAM data path: dhg_torch.tools.gen_iam_scale writes a
                  tree of 192 train and 48 validation forms (seed 7); both
                  caches built on the card (style vectors from the StyleExtractor
-                 with data/style_trunk_synth.npz, as phase 7b) through load_or_build_cache (the
+                 with data/style_trunk_synth.npz, as phase 7b, through its
+                 apply_fn: a batch shape's calls after its first replay a
+                 captured graph; the shapes, graphs, capture seconds and pool
+                 bytes of each build logged, the train build must replay) through
+                 load_or_build_cache (the
                  native stroke scanner must parse every file; lines kept and
                  dropped by filter, seconds by stage, lines/s, peak memory),
                  then loaded again without a rebuild; 20 steps of
@@ -180,15 +184,33 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  names attention_mma_kernel and conv_block_kernel; then
                  eval_fewer_steps and eval_encoder_reuse on the train run
                  (f32), sweep (batch 96), bench_hoist and profile_stages (batch 96:
-                 each stage's kernels) at small arguments, each report's
-                 JSON parsed and its keys checked, and plot_run's PNG of
-                 the profile run
+                 each stage's kernels; each stage's 60-step loop replayed from
+                 a captured graph beside the eager loop, PROFILE_STAGES_ITERS
+                 timed loops of each) at small arguments,
+                 each report's JSON parsed and its keys checked, and
+                 plot_run's PNG of the profile run; profile_stages' whole
+                 denoise loop at B = 96 replayed against the eager loop, bit
+                 for bit, 60 bottleneck + 120 encoder-layer launches each;
+                 eval_parallel_sampler's Jacobi replays (one graph a sweep
+                 count, the sequential side replaying generate's) each equal
+                 to its sweep of the eager run bit for bit
   7h. style trunk — flax's random MobileNetV2 init (the default trunk,
                  data/mobilenetv2_tv.npz being absent): its feature std on
                  eval_style_gap's 8 x 6 benchmark lines (fatal below 1e-4; a
-                 torch-default init gave ~1e-8); tools/train_style_trunk.py at
+                 torch-default init gave ~1e-8); its apply_fn at B = 1 and 32
+                 (eager, captured, replayed) equal to the module call bit for
+                 bit, ms a batch eager and replayed; TRUNK_EQUAL_STEPS trunk
+                 steps at dhg's batch on those lines (TrunkStep: the first
+                 eager, then replays of its graph) against the eager body
+                 from a copy of the same start on the same draws: rows,
+                 weights and Adam moments bit for bit,
+                 steps/s of each; two eager runs of that step with cuDNN's
+                 default algorithms (deterministic off) from the same start:
+                 whether they agree, their steps/s, and which parameters'
+                 first-batch gradients differ between two backward passes
+                 (logged, not fatal); tools/train_style_trunk.py at
                  dhg's defaults (600 steps, 128 writers x 16 lines, batch 64,
-                 width 384; steps/s), then `evaluate` of the trained and the
+                 width 384; replayed steps/s, capture s), then `evaluate` of the trained and the
                  random trunk on the 8 x 6 benchmark; tree mode on phase 7d's
                  tree (32 forms, 100 steps, held-out retrieval); the
                  eval_style_gap CLI (8 x 6, the style ablation on phase 7d's
@@ -211,6 +233,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  drawn) through torch.save and
                  tools/convert_torchvision_mnv2.py, loaded strictly by
                  init_style_extractor on the card: its [2, 14, 1280] vectors
+                 (through its apply_fn)
                  against the trunk on the card with the reference pooling
                  (AvgPool2d(3, 3), AdaptiveAvgPool2d((1, 14))) within rtol
                  1e-3, atol 1e-4; none of the five kernels launched; the
@@ -281,7 +304,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
                  against GRAPH_PHASE_S, logged
 The weights are random (seed 0); depth is the canonical 2 attention layers.
 
-The kernels line counts the sampler kernels' launches from phase 5c's
+The report's phase_seconds holds each phase's wall seconds ("== " line to
+the next). The kernels line counts the sampler kernels' launches from phase 5c's
 replays at batch 96. Stdout ends with the kernels line, the nvidia-smi line and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -339,8 +363,11 @@ DISTILL_STEPS = 20  # phase 7e: 60 -> 30 from the train run's model_final
 MP_STEPS = 5  # phase 7f: steps of each multi-process train run
 IAM_FORMS, IAM_SEED = (192, 48), 7  # generated train / validation forms
 SAMPLER_KERNELS = ("fused_bottleneck", "fused_encoder_layer", "fused_unet_t4")
+# Phase 7g: profile_stages' timed loops a stage, eager and replayed (the tool's
+# ITERS, 5, cut for the script's time).
+PROFILE_STAGES_ITERS = 3
 # Phase 7g: the keys of each tool's report (dhg's, plus "backend"; profile_stages
-# also "kernels"), as dhg/tools/<tool>.py writes them.
+# also "kernels" and "eager_ms_per_step"), as dhg/tools/<tool>.py writes them.
 TOOL_KEYS = {
     "eval_fewer_steps": {"batch", "seq_len", "mode", "backend", "ms_per_call_60", "rows"},
     "eval_fewer_steps_row": {"n_steps", "stroke_mse", "stroke_max_abs", "pen_flip_rate",
@@ -353,13 +380,16 @@ TOOL_KEYS = {
     "bench_hoist": {"batch", "hoist", "ms_per_call", "ms_per_step", "denoise_steps_per_sec",
                     "backend"},
     "profile_stages": {"batch", "seq_len", "backend", "ms_per_step", "stage_sum_ms", "glue_ms",
-                       "pct_of_full", "kernels"},
+                       "pct_of_full", "kernels", "eager_ms_per_step"},
 }
 # Phase 7h: train_style_trunk at dhg's defaults; tree mode (forms, steps);
 # the phase's time limit (seconds).
 STYLE_TRUNK = {"steps": 600, "writers": 128, "per_writer": 16, "batch": 64, "width": 384}
 STYLE_TREE = {"writers": 32, "steps": 100, "batch": 64, "width": 384}
 STYLE_PHASE_S = 120.0
+# Phase 7h: eager against replayed trunk steps (dhg's batch on the benchmark
+# lines), and the batches of the style vectors replayed against eager.
+TRUNK_EQUAL_STEPS, STYLE_BATCHES = 20, (1, 32)
 # Phase 8d: steps of each eager / replayed distill pair, steps of each timed
 # turn, the validation cache's rows (two batches of 96 and a tail of 8), and
 # the phase's time budget (seconds; logged, not fatal).
@@ -409,8 +439,19 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+PHASE_STARTS: list = []  # (label, perf_counter) of each "== " line, in order
+
+
 def log(msg: str) -> None:
+    if msg.startswith("== "):
+        PHASE_STARTS.append((msg[3:], time.perf_counter()))
     print(msg, flush=True)
+
+
+def phase_seconds() -> dict:
+    """Seconds from each "== " line to the next one (the last to now)."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    return {label: end - t for (label, t), end in zip(PHASE_STARTS, ends)}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1563,6 +1604,7 @@ def iam_phase(report, tmp):
     from dhg_torch.kernels import fused_bottleneck as fk
     from dhg_torch.kernels import fused_conv_block as fc
     from dhg_torch.metrics import main as metrics_main
+    from dhg_torch.models import style_extractor as style_mod
     from dhg_torch.models.denoiser import DiffusionModel
     from dhg_torch.native import get_lib
     from dhg_torch.tools import gen_iam_scale
@@ -1592,15 +1634,40 @@ def iam_phase(report, tmp):
     cfg = DLConfig(cfg)
     if get_lib() is None:
         fail("iam: the native stroke scanner did not build (g++)")
+    # Every StyleExtractor apply_fn the builds make (data/iam.py::style_apply),
+    # to read its graphs: one a build, a key a batch shape.
+    made_apply: list = []
+    real_make_apply = style_mod.make_apply_fn
+
+    def spy_make_apply(model):
+        made_apply.append(real_make_apply(model))
+        return made_apply[-1]
+
     caches = {}
     for kind in ("train", "validation"):
         kwargs = iam_cache_kwargs(cfg, kind, "cuda")
         stroke_parse.parsed.clear()
         torch.cuda.reset_peak_memory_stats()
         built: dict = {}
-        t0 = time.perf_counter()
-        cache = load_or_build_cache(**kwargs, stats=built)
-        wall = time.perf_counter() - t0
+        style_mod.make_apply_fn = spy_make_apply
+        try:
+            t0 = time.perf_counter()
+            cache = load_or_build_cache(**kwargs, stats=built)
+            wall = time.perf_counter() - t0
+        finally:
+            style_mod.make_apply_fn = real_make_apply
+        graphs = [getattr(f, "graphs", None) for f in made_apply]
+        made_apply.clear()
+        if len(graphs) != 1 or graphs[0] is None:
+            fail(f"iam {kind}: the style stage made {len(graphs)} apply_fn graph caches, "
+                 f"expected one")
+        g = graphs[0]
+        built["style_graphs"] = {
+            "shapes": len(g.seen), "graphs": len(g.graphs), "captures": g.captures,
+            "pool_bytes": pool_bytes(g.pool),
+            "capture_s": sum(e[0].capture_s for e in g.graphs.values()),
+            "keys": sorted(str(list(k[0])) for k in g.graphs)}
+        del graphs, g
         parsed = dict(stroke_parse.parsed)
         if "built" not in built:
             fail(f"iam {kind}: the cache was not built afresh ({built})")
@@ -1622,6 +1689,12 @@ def iam_phase(report, tmp):
             f"over {built['workers']} threads), style {built['style_s']:.2f} s, save "
             f"{built['save_s']:.2f} s; {built['lines_per_s']:.1f} lines/s; peak "
             f"{built['peak_mem_gb']:.3f} GiB")
+        log(f"  {kind} style stage: {built['style_graphs']['shapes']} batch shapes, "
+            f"{built['style_graphs']['graphs']} replayed from captured graphs "
+            f"({built['style_graphs']['keys']}; {built['style_graphs']['capture_s']:.2f} s of "
+            f"capture), pool {built['style_graphs']['pool_bytes']} bytes")
+        if kind == "train" and not built["style_graphs"]["captures"]:
+            fail("iam train: no batch shape of the style stage was replayed from a graph")
         again: dict = {}
         t0 = time.perf_counter()
         reloaded = load_or_build_cache(**kwargs, stats=again)
@@ -2094,6 +2167,7 @@ def optin_phase(run, tmp, report):
     import math
     from pathlib import Path
 
+    from dhg_torch.core.graphs import CapturedBody
     from dhg_torch.core.parallel_sampling import parallel_ddim_sample
     from dhg_torch.data.images import read_png
     from dhg_torch.inference import _sample, beta_table, generate
@@ -2224,10 +2298,17 @@ def optin_phase(run, tmp, report):
         + f"; 60 sweeps {par_ms:.1f} ms, sequential {seq_ms:.1f} ms; peak {peak:.3f} GiB")
     if not mses[60] <= 1e-3:
         fail(f"Jacobi DDIM: 60 sweeps {mses[60]} from the sequential DDIM")
-    log("  tools/eval_parallel_sampler.py at its defaults (bf16, random weights):")
+    log("  tools/eval_parallel_sampler.py at its defaults (bf16, random weights; both sides "
+        "replayed):")
     table, ret, _ = tool_json(eval_parallel_sampler.main, ["--device=cuda"])
     check_launches("eval_parallel_sampler's parallel runs", tuple(
         ret["sampler_kernel_launches"][k] for k in SAMPLER_KERNELS), (0, 0, 0))
+    sweeps = [r["sweeps"] for r in ret["rows"]]
+    log(f"  Jacobi replays equal to the eager run's sweeps, bit for bit: "
+        f"{ret.get('replay_equals_eager')}")
+    if ret.get("replay_equals_eager") != {k: True for k in sweeps}:
+        fail(f"eval_parallel_sampler: a Jacobi replay differs from the eager run's sweep "
+             f"({ret.get('replay_equals_eager')})")
     out["jacobi"] = {"f32_stroke_mse_by_sweeps": mses, "f32_60_sweeps_ms": par_ms,
                      "f32_sequential_ms": seq_ms, "peak_gib": peak, "launches": got,
                      "bf16_table": ret}
@@ -2286,15 +2367,42 @@ def optin_phase(run, tmp, report):
             or "BEST: {" not in text_out:
         fail("bench_hoist: bad rows")
     tools["bench_hoist"] = rows
-    log("  tools/profile_stages.py:")
-    rep, ret, _ = tool_json(profile_stages.main, ["--device=cuda", "--batch=96"])
+    log(f"  tools/profile_stages.py ({PROFILE_STAGES_ITERS} timed loops a stage and mode):")
+    iters, profile_stages.ITERS = profile_stages.ITERS, PROFILE_STAGES_ITERS
+    try:
+        rep, ret, _ = tool_json(profile_stages.main, ["--device=cuda", "--batch=96"])
+    finally:
+        profile_stages.ITERS = iters
     layer = {"fused_encoder_layer": 1}
     want_kernels = {"full": {"fused_bottleneck": 1, "fused_encoder_layer": 2}, "enc1": {},
                     "enc2_enc3": layer, "enc4_enc5": layer, "att_stack": {"fused_bottleneck": 1},
                     "decoder": {}}
     if rep != ret or set(rep) != TOOL_KEYS["profile_stages"] or rep["kernels"] != want_kernels:
         fail(f"profile_stages: bad report (kernels {rep.get('kernels')}, want {want_kernels})")
+    log("  profile_stages B=96 ms a step, replayed / eager: " + "; ".join(
+        f"{k} {v:.4f} / {rep['eager_ms_per_step'][k]:.4f}" for k, v in rep["ms_per_step"].items()))
     tools["profile_stages"] = rep
+    # One stage's loop, the whole denoise step at B = 96 (bottleneck and
+    # encoder-layer kernels), replayed against the eager loop.
+    stage_model, stages = profile_stages.build_stages(96, 24, "cuda")
+    body, x0 = stages["full"]
+    loop = profile_stages.stage_loop(body)
+    with torch.inference_mode():
+        eager_out, eager_l = counted_run(lambda: loop(x0))
+        graph = CapturedBody(loop, (x0,), (stage_model,), "cuda")
+        graph.run()
+        replay_out, replay_l = counted_run(graph.run)
+    equal = torch.equal(replay_out, eager_out)
+    log(f"  profile_stages 'full' B=96, {profile_stages.N_STEPS} steps: replay equal to the eager "
+        f"loop bit for bit {equal}; launches replayed {replay_l}, eager {eager_l}; capture "
+        f"{graph.capture_s:.2f} s")
+    if not equal or replay_l != eager_l or eager_l != (60, 120, 0):
+        fail(f"profile_stages: the replayed 'full' loop differs from the eager one (equal {equal}, "
+             f"launches {replay_l} against {eager_l})")
+    tools["profile_stages_full_replay"] = {"bit_for_bit": equal, "launches": list(replay_l),
+                                           "capture_s": graph.capture_s}
+    del stage_model, stages, body, x0, loop, graph, eager_out, replay_out
+    torch.cuda.empty_cache()
     png = os.path.join(tmp, "loss_curves.png")
     _, ret, _ = tool_json(plot_run.main, ["--experiment_path", str(prof_run), "--output", png])
     shape = read_png(png).shape
@@ -2312,9 +2420,11 @@ def style_phase(iam, tmp, report):
     three style tools on phase 7d's tree, cache and run (see the module
     docstring)."""
     import contextlib
+    import copy
     import io
     from pathlib import Path
 
+    from dhg_torch.models.style_extractor import make_apply_fn
     from dhg_torch.tools import eval_fsd_sensitivity as fsd
     from dhg_torch.tools import eval_style_gap as gap
     from dhg_torch.tools import eval_style_pathway as pathway
@@ -2346,6 +2456,110 @@ def style_phase(iam, tmp, report):
     if not 1e-4 < vecs.std() < 1.0 or not np.isfinite(vecs).all():
         fail(f"style: the random trunk's features are off scale (std {vecs.std():.3g})")
 
+    # -- the StyleExtractor's apply_fn replayed against the module call ------------------
+    extractor = gap.quiet_extractor(device="cuda")
+    apply_fn = make_apply_fn(extractor)
+    style_graphs = {}
+    for b in STYLE_BATCHES:
+        xs = [torch.from_numpy(imgs[i:i + b].astype(np.float32)).cuda() for i in range(3)]
+        with torch.inference_mode():
+            got = [apply_fn(x) for x in xs]  # eager, then captured, then replayed
+            want = [extractor(x) for x in xs]
+            equal = all(torch.equal(a, w) for a, w in zip(got, want))
+            ms = {"eager": [], "replayed": []}
+            for mode in ("eager", "replayed", "replayed", "eager"):
+                call = extractor if mode == "eager" else apply_fn
+                ms[mode].append(event_ms(lambda: [call(xs[0]) for _ in range(5)])[1] / 5)
+        style_graphs[str(b)] = {"bit_for_bit": equal, "ms": ms}
+        log(f"  apply_fn B={b} on 96 x {imgs.shape[2]}: eager, captured, replayed calls equal to "
+            f"the module call bit for bit {equal}; ms a batch eager "
+            f"{', '.join(f'{v:.3f}' for v in ms['eager'])}, replayed "
+            f"{', '.join(f'{v:.3f}' for v in ms['replayed'])}")
+        if not equal:
+            fail(f"style: the apply_fn's calls at B={b} differ from the module call")
+    g = apply_fn.graphs
+    style_graphs.update(captures=g.captures, pool_bytes=pool_bytes(g.pool),
+                        capture_s=[e[0].capture_s for e in g.graphs.values()])
+    if g.captures != len(STYLE_BATCHES):
+        fail(f"style: {g.captures} apply_fn captures, expected {len(STYLE_BATCHES)}")
+    out["apply_fn"] = style_graphs
+    del extractor, apply_fn, g
+
+    # -- the trunk's step: replayed against eager from one start ---------------------------
+    # On the benchmark lines (8 writers, dhg's width), at dhg's batch.
+    t_imgs = torch.from_numpy(imgs).cuda()
+    t_labels = torch.from_numpy(np.asarray(labels, np.int64)).cuda()
+    net = tst.make_classifier(int(labels.max()) + 1, 0, "cuda")
+    # TrunkStep's pair (eager body, replays), then two eager runs of the same
+    # step with cuDNN's default algorithms (deterministic off), all from
+    # copies of one start on the same draws.
+    steps = [tst.TrunkStep(n, tst.make_optimizer(n, 3e-4, STYLE_TRUNK["steps"]), t_imgs, t_labels)
+             for n in (net, *(copy.deepcopy(net) for _ in range(3)))]
+    gen = torch.Generator("cuda").manual_seed(0)
+    idxs = [torch.randint(0, len(t_imgs), (STYLE_TRUNK["batch"],), generator=gen, device="cuda")
+            for _ in range(TRUNK_EQUAL_STEPS)]
+    eager, replayed, *free = steps
+
+    def free_body(step, idx):  # TrunkStep.body, cuDNN's deterministic switch left off
+        logits = step.net(step.imgs[idx].float())
+        ce = torch.nn.functional.cross_entropy(logits, step.labels[idx])
+        acc = (logits.argmax(-1) == step.labels[idx]).float().mean()
+        step.opt.update(list(torch.autograd.grad(ce, step.opt.params)))
+        return torch.stack([ce.detach(), acc])
+
+    def eager_steps(step, lo, hi, body=tst.TrunkStep.body):
+        rows = []
+        for idx in idxs[lo:hi]:
+            step.opt.stage()
+            rows.append(body(step, idx))
+        return rows
+
+    def timed_run(step, body=tst.TrunkStep.body):
+        rows = eager_steps(step, 0, 1, body)
+        more, ms = event_ms(lambda: eager_steps(step, 1, TRUNK_EQUAL_STEPS, body))
+        return torch.stack(rows + more), ms
+
+    if torch.backends.cudnn.deterministic:
+        fail("style: cuDNN's deterministic switch is on before the trunk's check")
+    free_grads = []  # the first batch's gradients, twice, from the start
+    for _ in range(2):
+        ce = torch.nn.functional.cross_entropy(net(t_imgs[idxs[0]].float()), t_labels[idxs[0]])
+        free_grads.append(torch.autograd.grad(ce, list(net.parameters())))
+    free_diff = {name: float((a - b).abs().max()) for (name, _), a, b
+                 in zip(net.named_parameters(), *free_grads) if not torch.equal(a, b)}
+    rows_f = [timed_run(free[0], free_body)]
+    rows_e, ms = timed_run(eager)
+    rows_g = [replayed(idxs[0]).clone()]  # eager on a side stream, then the capture
+    more, ms_g = event_ms(lambda: [replayed(idx).clone() for idx in idxs[1:]])
+    rows_g += more
+    rows_f.append(timed_run(free[1], free_body))
+    same = {"rows": torch.equal(rows_e, torch.stack(rows_g)),
+            "weights": all(torch.equal(a, b) for a, b in zip(eager.opt.params, replayed.opt.params)),
+            "adam": all(torch.equal(a, b) for a, b in zip(eager.opt.mu + eager.opt.nu,
+                                                          replayed.opt.mu + replayed.opt.nu))}
+    free_same = {"rows": torch.equal(rows_f[0][0], rows_f[1][0]),
+                 "weights": all(torch.equal(a, b) for a, b in zip(free[0].opt.params,
+                                                                  free[1].opt.params))}
+    per_s = [(TRUNK_EQUAL_STEPS - 1) / (t / 1e3) for t in (ms, ms_g, rows_f[0][1], rows_f[1][1])]
+    rate = {"eager": per_s[0], "replayed": per_s[1], "eager_cudnn_default": per_s[2:]}
+    log(f"  trunk step, {TRUNK_EQUAL_STEPS} steps at batch {STYLE_TRUNK['batch']} from the "
+        f"{len(imgs)} benchmark lines (width {imgs.shape[2]}): replayed equal to eager bit "
+        f"for bit {same}; steps 2-{TRUNK_EQUAL_STEPS} eager {rate['eager']:.2f} steps/s, replayed "
+        f"{rate['replayed']:.2f} (CUDA events); capture {replayed.graph.capture_s:.2f} s")
+    log(f"  the same step with cuDNN's default algorithms (deterministic off), eager: two runs "
+        f"from the start equal {free_same}, {per_s[2]:.2f} and {per_s[3]:.2f} steps/s; the "
+        f"first batch's gradients twice: {len(free_diff)} of "
+        f"{len(free_grads[0])} parameters differ {free_diff}")
+    if not all(same.values()):
+        fail(f"style: the replayed trunk steps differ from the eager ones ({same})")
+    out["trunk_step_graph"] = dict(same, steps=TRUNK_EQUAL_STEPS, steps_per_sec=rate,
+                                   capture_s=replayed.graph.capture_s,
+                                   cudnn_default_runs_equal=free_same,
+                                   cudnn_default_grad_diffs=free_diff)
+    del net, steps, eager, replayed, free, t_imgs, t_labels, rows_e, rows_g, rows_f, more
+    del free_grads
+    torch.cuda.empty_cache()
+
     # -- train_style_trunk at dhg's defaults, then evaluate ------------------------
     stats: dict = {}
     trunk = str(Path(tmp) / "style_trunk_synth.npz")
@@ -2357,8 +2571,9 @@ def style_phase(iam, tmp, report):
     random_ret = tst.evaluate(None, "cuda")
     eval_s = time.perf_counter() - t0
     log(f"  train_style_trunk {STYLE_TRUNK}: set built in {stats['build_s']:.1f} s, "
-        f"{stats['steps_per_sec']:.2f} steps/s ({stats['train_s']:.1f} s), final ce "
-        f"{res['final_ce']:.4f}, batch acc {res['final_acc']:.3f}")
+        f"{stats['steps_per_sec']:.2f} steps/s replayed ({stats['train_s']:.1f} s, the capture "
+        f"{stats['capture_s']:.2f} s), final ce {res['final_ce']:.4f}, batch acc "
+        f"{res['final_acc']:.3f}")
     log(f"  evaluate (8 x 6 benchmark): trained {trained}; random {random_ret} "
         f"({eval_s:.1f} s for both)")
     if not np.isfinite(res["final_ce"]) or set(trained) != RETRIEVAL_KEYS:
@@ -2491,7 +2706,7 @@ def converters_phase(run, tmp, style_png, infer_strokes, report):
 
     from dhg_torch.checkpoint import load_checkpoint
     from dhg_torch.inference import main as infer_main
-    from dhg_torch.models.style_extractor import init_style_extractor
+    from dhg_torch.models.style_extractor import init_style_extractor, make_apply_fn
     from dhg_torch.tools import convert_torch_checkpoint as ckpt_convert
     from dhg_torch.tools import convert_torchvision_mnv2 as mnv2
     from dhg_torch.tools import export_torch_checkpoint as export
@@ -2559,8 +2774,8 @@ def converters_phase(run, tmp, style_png, infer_strokes, report):
     extractor = init_style_extractor(weights_path=tmp / "mnv2_tv.npz", strict=True, device="cuda")
     img = torch.from_numpy((np.random.RandomState(2).rand(2, 96, 200) * 255).astype(np.float32))
     net = net.cuda()
+    ours = make_apply_fn(extractor)(img.cuda()).cpu().numpy()
     with torch.no_grad():
-        ours = extractor(img.cuda()).cpu().numpy()
         x = (img[:, None].cuda() / 127.5 - 1).repeat(1, 3, 1, 1)
         x = torch.nn.AdaptiveAvgPool2d((1, 14))(torch.nn.AvgPool2d(3, 3)(net(x)))
         want = x.squeeze(2).permute(0, 2, 1).cpu().numpy()
@@ -3276,6 +3491,7 @@ def main() -> None:
                    replayed["B=96 T4"][2], "T4 region B=96"),
     ]
     report["kernels"] = kernels
+    report["phase_seconds"] = phase_seconds()
     report["script_s"] = time.perf_counter() - t_script
     log(f"== done in {report['script_s']:.1f} s (build {report['build_s']:.1f} s)")
     if args.out:

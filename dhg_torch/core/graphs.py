@@ -54,7 +54,12 @@ what a first call makes lazily, the kernel library, cuBLAS's handles and
 workspaces, autograd's state, is made outside the capture), then captured
 and replayed with no fallback: the train step and its forward
 (train.py::StepGraph), the distill step (distill.py::Distiller.make_step_fn)
-and the eval step (eval.py::make_eval_fn).
+and the style trunk's step (tools/train_style_trunk.py::TrunkStep).
+`KeyedGraphs` keeps one CapturedBody per key in one pool, as a jitted
+function keeps one program per static signature: the eval step
+(eval.py::EvalGraphs), the StyleExtractor's apply_fn
+(models/style_extractor.py::make_apply_fn) and the Jacobi sampler a sweep
+count (tools/eval_parallel_sampler.py).
 """
 
 from __future__ import annotations
@@ -169,6 +174,47 @@ class CapturedBody:
             graph, lambda: self.body(*self.inputs), self.modules, self.pool)
         self.graph = graph
         return first
+
+
+class KeyedGraphs:
+    """`body(key, *inputs)` of `model` as one CapturedBody per key, all in
+    one memory pool: the port's counterpart of a jitted function's cache of
+    compiled programs, one a static signature. `run(key, *inputs)` copies
+    the inputs into the key's static buffers and replays its graph; a key
+    with no graph is captured on its first call (the body taken eagerly on
+    a side stream, then captured), or, with eager_first, runs the body
+    eagerly on its first call and is captured on its second, so a one-shot
+    call pays no capture (generate's rule). Each entry keeps the model's
+    storage at its capture (storage_state): a call that finds it replaced
+    (a new load, `.to()`, a mode switch) captures again, while an in-place
+    update is read. A graph's temporaries may lie where another graph's
+    output lies, so each call returns a copy of the output. CUDA only; a
+    failed capture or replay raises."""
+
+    def __init__(self, model, body, eager_first: bool = False):
+        self.model, self.body, self.eager_first = model, body, eager_first
+        self.device = next(model.parameters()).device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.captures = 0  # graphs captured so far, captures again included
+        self.graphs: dict = {}  # key -> (CapturedBody, the model's storage_state at capture)
+        self.seen: set = set()  # keys run eagerly (eager_first)
+
+    def run(self, key, *inputs: torch.Tensor):
+        state = storage_state(self.model)
+        entry = self.graphs.get(key)
+        if entry is not None and entry[1] == state:
+            for buf, v in zip(entry[0].inputs, inputs):
+                buf.copy_(v)
+            return entry[0].run().clone()
+        if self.eager_first and key not in self.seen:
+            self.seen.add(key)
+            return self.body(key, *inputs)
+        graph = CapturedBody(lambda *xs: self.body(key, *xs), tuple(v.clone() for v in inputs),
+                             (self.model,), self.device, self.pool)
+        out = graph.run()
+        self.graphs[key] = (graph, state)
+        self.captures += 1
+        return out
 
 
 class SamplerKey(NamedTuple):

@@ -229,18 +229,20 @@ def build_iam_cache(
 
 def style_apply(style_weights=None, device: str = "cuda"):
     """The frozen StyleExtractor on `device` as a numpy function [B, H, W]
-    -> [B, 14, 1280] float32."""
+    -> [B, 14, 1280] float32, through its apply_fn (style_extractor.
+    make_apply_fn: on CUDA a shape's calls after its first replay a captured
+    graph)."""
     import torch
 
-    from dhg_torch.models.style_extractor import init_style_extractor
+    from dhg_torch.models.style_extractor import init_style_extractor, make_apply_fn
 
     model = init_style_extractor(style_weights, device=device)
     dev = next(model.parameters()).device
+    apply_fn = make_apply_fn(model)
 
     def apply(imgs: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(imgs, dtype=np.float32)).to(dev)
-        with torch.inference_mode():
-            return model(x).cpu().numpy()
+        return apply_fn(x).cpu().numpy()
 
     return apply
 

@@ -33,7 +33,7 @@ import torch
 import torch.distributed as tdist
 
 from dhg_torch import resolve_device
-from dhg_torch.core.graphs import CapturedBody, storage_state
+from dhg_torch.core.graphs import KeyedGraphs
 from dhg_torch.core.losses import diffusion_loss
 from dhg_torch.core.schedule import get_alpha_set
 from dhg_torch.kernels.runtime import kernel_modes
@@ -72,20 +72,17 @@ class EvalKey(NamedTuple):
     training: bool
 
 
-class EvalGraphs:
+class EvalGraphs(KeyedGraphs):
     """make_eval_fn's step on CUDA: `eval_batch` of `model` at `levels`,
-    one core/graphs.py CapturedBody per EvalKey, all in one memory pool.
-    Each entry keeps the model's storage at its capture (storage_state); a
-    call that finds it replaced (a new load, `.to()`) captures again, while
-    an in-place update is read, because the weights' casts happen inside the
-    graph. Each call returns a copy of the graph's [3] output."""
+    one core/graphs.py CapturedBody per EvalKey, all in one memory pool
+    (KeyedGraphs: a key captured at its first batch; a replaced storage
+    captured again, an in-place update read, because the weights' casts
+    happen inside the graph). Each call returns a copy of the graph's [3]
+    output."""
 
     def __init__(self, model, levels: torch.Tensor):
-        self.model, self.levels = model, levels
-        self.device = next(model.parameters()).device
-        self.pool = torch.cuda.graph_pool_handle()
-        self.captures = 0  # graphs captured so far, captures again included
-        self.graphs: dict[EvalKey, tuple[CapturedBody, tuple]] = {}
+        super().__init__(model, lambda key, *batch: eval_batch(model, *batch, levels))
+        self.levels = levels
 
     @staticmethod
     def key(model, strokes3: torch.Tensor, text: torch.Tensor, style: torch.Tensor,
@@ -96,23 +93,9 @@ class EvalGraphs:
                        tuple(style.shape[1:]), int(n_levels), str(model.dtype),
                        kernel_modes(torch.device(device)), model.training)
 
-    def _body(self, strokes3, text, style, eps):
-        return eval_batch(self.model, strokes3, text, style, eps, self.levels)
-
     def __call__(self, strokes3, text, style, eps) -> torch.Tensor:
         key = self.key(self.model, strokes3, text, style, len(self.levels), self.device)
-        state = storage_state(self.model)
-        entry = self.graphs.get(key)
-        if entry is not None and entry[1] == state:
-            for buf, v in zip(entry[0].inputs, (strokes3, text, style, eps)):
-                buf.copy_(v)
-            return entry[0].run().clone()
-        body = CapturedBody(self._body, tuple(v.clone() for v in (strokes3, text, style, eps)),
-                            (self.model,), self.device, self.pool)
-        out = body.run()
-        self.graphs[key] = (body, state)
-        self.captures += 1
-        return out
+        return self.run(key, strokes3, text, style, eps)
 
 
 def make_eval_fn(model, batch_size: int = 0, n_levels: int = 6):

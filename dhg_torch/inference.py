@@ -350,7 +350,7 @@ def sample_lines(
     return [arr[i, : infer_seq_len(l)] for i, l in enumerate(lengths)]
 
 
-_style_extractors: dict = {}  # (weights_path, strict, device) -> StyleExtractor
+_style_extractors: dict = {}  # (weights_path, strict, device) -> the extractor's apply_fn
 
 
 def style_from_image(source, img_height: int = 96, style_weights=None, strict: bool = False,
@@ -360,18 +360,20 @@ def style_from_image(source, img_height: int = 96, style_weights=None, strict: b
 
     style_weights: dhg's flat MobileNetV2 .npz; None resolves to the repo
     default <repo>/data/mobilenetv2_tv.npz. A missing file warns loudly
-    (random trunk); strict=True raises instead. The extractor is built once
-    per (style_weights, strict, device) and reused."""
+    (random trunk); strict=True raises instead. The extractor and its
+    apply_fn (style_extractor.make_apply_fn: on CUDA an image shape's calls
+    after its first replay a captured graph) are built once per
+    (style_weights, strict, device) and reused."""
     from dhg_torch.data.images import read_img
-    from dhg_torch.models.style_extractor import init_style_extractor
+    from dhg_torch.models.style_extractor import init_style_extractor, make_apply_fn
 
     dev = resolve_device(device)
     key = (None if style_weights is None else str(style_weights), bool(strict), str(dev))
     if key not in _style_extractors:
-        _style_extractors[key] = init_style_extractor(style_weights, strict=strict, device=dev)
+        _style_extractors[key] = make_apply_fn(
+            init_style_extractor(style_weights, strict=strict, device=dev))
     img = torch.from_numpy(read_img(source, img_height).astype(np.float32))[None].to(dev)
-    with torch.inference_mode():
-        return _style_extractors[key](img)
+    return _style_extractors[key](img)
 
 
 def infer(

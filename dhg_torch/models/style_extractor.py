@@ -13,6 +13,12 @@ carries data/style_trunk_synth.npz and data/style_trunk_tree.npz). Where the
 file is missing the trunk is random, with a loud UserWarning, as in dhg
 (strict=True raises instead); the default path, data/mobilenetv2_tv.npz (the
 converted ImageNet weights), is absent from the repo.
+
+dhg's init_style_extractor also returns a jitted apply_fn, one compiled
+program an input shape. The port's init returns the module, and
+make_apply_fn wraps it as that apply_fn: on CUDA one captured CUDA graph an
+input shape. Every caller of the extractor goes through it (the IAM
+build's style stage, style_from_image, the style tools).
 """
 
 from __future__ import annotations
@@ -35,13 +41,14 @@ STYLE_DIM = 1280
 DEFAULT_WEIGHTS_PATH = Path(__file__).resolve().parents[2] / "data" / "mobilenetv2_tv.npz"
 
 
-def width_bins(w: int, out_w: int = STYLE_LEN) -> torch.Tensor:
-    """[w, out_w] float32 averaging matrix of torch's adaptive pooling."""
-    starts = np.floor(np.arange(out_w) * w / out_w).astype(np.int64)
-    ends = np.ceil((np.arange(out_w) + 1) * w / out_w).astype(np.int64)
-    cols = np.arange(w)[:, None]
-    weights = ((cols >= starts[None]) & (cols < ends[None])).astype(np.float32)
-    return torch.from_numpy(weights / weights.sum(axis=0, keepdims=True))
+def width_bins(w: int, out_w: int = STYLE_LEN, device=None) -> torch.Tensor:
+    """[w, out_w] float32 averaging matrix of torch's adaptive pooling, made
+    on `device` (no host copy, so a CUDA graph can capture it)."""
+    bins = torch.arange(out_w, device=device)
+    starts, ends = (bins * w) // out_w, -((-(bins + 1) * w) // out_w)  # floor, ceil
+    cols = torch.arange(w, device=device)[:, None]
+    weights = ((cols >= starts) & (cols < ends)).float()
+    return weights / weights.sum(dim=0, keepdim=True)
 
 
 class StyleExtractor(nn.Module):
@@ -57,8 +64,38 @@ class StyleExtractor(nn.Module):
         x = self.mobilenet(x)  # [B, 1280, h, w]
         x = nn.functional.avg_pool2d(x, 3, 3)  # floor mode
         x = x.mean(dim=2)  # [B, 1280, w]
-        bins = width_bins(x.shape[-1]).to(x.device)
+        bins = width_bins(x.shape[-1], device=x.device)
         return torch.einsum("bcw,wo->boc", x, bins)
+
+
+def make_apply_fn(model: StyleExtractor):
+    """dhg's jitted `apply_fn` of an extractor (init_style_extractor):
+    apply_fn(img [B, H, W] on the model's device) -> [B, 14, 1280] float32,
+    under inference mode. On CUDA one captured CUDA graph per input shape
+    and dtype (core/graphs.py KeyedGraphs, `apply_fn.graphs`, one pool): a
+    shape's first call runs eagerly, the second captures and replays, later
+    calls replay, each returning a copy of the output; a model whose storage
+    was replaced (or whose mode changed) is captured again, an in-place
+    update is read. cuDNN's TF32 switch is in the key: a graph bakes in the
+    conv algorithms chosen at its capture (init_style_extractor turns TF32
+    off). On the CPU it is the module call."""
+    if next(model.parameters()).device.type != "cuda":
+        def apply_fn(img: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return model(img)
+
+        return apply_fn
+    from dhg_torch.core.graphs import KeyedGraphs  # it imports the sampler
+
+    graphs = KeyedGraphs(model, lambda key, img: model(img), eager_first=True)
+
+    def apply_fn(img: torch.Tensor) -> torch.Tensor:
+        key = (tuple(img.shape), img.dtype, torch.backends.cudnn.allow_tf32)
+        with torch.inference_mode():
+            return graphs.run(key, img)
+
+    apply_fn.graphs = graphs
+    return apply_fn
 
 
 def random_style_extractor(generator: torch.Generator) -> StyleExtractor:

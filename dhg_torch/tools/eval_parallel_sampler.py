@@ -8,7 +8,17 @@ For each sweep count k: ms per call (N calls queued, one synchronise) and
 the stroke MSE of the k-sweep estimate against the SEQUENTIAL DDIM
 trajectory from the same x_T (the fixed point). The sequential baseline is
 the compact-hoist `generate(diffusion_mode="ddim")`. Every k's MSE comes
-from ONE return_all_sweeps run at max(sweeps).
+from ONE eager return_all_sweeps run at max(sweeps).
+
+dhg jits both sides, so its ratio compares two compiled programs. On the
+card so does this one: `generate` replays its captured graph from a key's
+second call, and each sweep count runs as one captured graph
+(core/graphs.py KeyedGraphs, keyed by k) on a static x_T, drawn before
+each replay from the call's generator as parallel_ddim_sample draws it;
+both warm up with two calls, so every timed call is a replay. The report
+then also says whether each k's replay equals sweep k of the eager run
+bit for bit (`replay_equals_eager`, by k). On the CPU both sides run
+eagerly.
 
 The parallel sampler calls the model's full forward at batch n*B with one
 sigma per row (conditioning tiled), so the sampler kernels' gate is closed
@@ -32,8 +42,8 @@ SAMPLER_KERNELS = ("fused_bottleneck", "fused_encoder_layer", "fused_unet_t4")
 
 
 def _timed_sustained(fn, iters: int, device) -> float:
-    fn(0)  # warm-up
-    fn(999)
+    fn(0)  # warm-up: on the card a key's eager call (generate) or its capture (Jacobi)
+    fn(999)  # generate's capture
     return seconds_per_call(lambda i: fn(i + 1), iters, device)
 
 
@@ -49,8 +59,10 @@ def prompts(batch: int, tokens: int, device):
 
 def main(argv=None) -> dict:
     from dhg_torch.config import parse_cli_kwargs
+    from dhg_torch.core.graphs import KeyedGraphs
     from dhg_torch.core.parallel_sampling import parallel_ddim_sample
     from dhg_torch.core.sampling import infer_seq_len
+    from dhg_torch.core.schedule import get_beta_set
     from dhg_torch.inference import generate
     from dhg_torch.kernels import fused_bottleneck as fk
     from dhg_torch.tools.common import load_model
@@ -83,14 +95,26 @@ def main(argv=None) -> dict:
         reps = x.shape[0] // batch
         return model(x, text.repeat(reps, 1), sigma, style.repeat(reps, 1, 1))
 
-    def par_fn(k, i, all_sweeps=False):
-        return parallel_ddim_sample(denoise_any, batch, seq_len, sweeps=k, generator=gen(i),
-                                    return_all_sweeps=all_sweeps, device=dev)
+    beta_set = get_beta_set().to(dev)
+
+    def jacobi(k, x_init):
+        return parallel_ddim_sample(denoise_any, batch, seq_len, beta_set, sweeps=k,
+                                    x_init=x_init, device=dev)
+
+    # dhg jits one program a sweep count; on the card, one captured graph a
+    # sweep count on a static x_init. On every device x_init is drawn from
+    # gen(i) as parallel_ddim_sample draws it (its first draw).
+    graphs = KeyedGraphs(model, jacobi) if dev.type == "cuda" else None
+
+    def par_fn(k, i):
+        x_init = torch.randn((batch, seq_len, 2), generator=gen(i), device=dev)
+        return graphs.run(k, x_init) if graphs is not None else jacobi(k, x_init)
 
     fk.reset_launch_counts()
     k_max = max(sweep_list)
-    _, ests = par_fn(k_max, 0, all_sweeps=True)
-    ests = ests.cpu().numpy()
+    _, ests_dev = parallel_ddim_sample(denoise_any, batch, seq_len, beta_set, sweeps=k_max,
+                                       generator=gen(0), return_all_sweeps=True, device=dev)
+    ests = ests_dev.cpu().numpy()
     mses = ((ests[..., :2] - seq_out[None, ..., :2]) ** 2).mean(axis=(1, 2, 3))
 
     rows = []
@@ -103,8 +127,15 @@ def main(argv=None) -> dict:
     launches = {name: fk.launches[name] for name in SAMPLER_KERNELS}
     print(f"sampler-kernel launches in the parallel runs: {launches} (expected 0: the full "
           f"forward with per-row sigma closes their gate)")
-    return {"backend": backend(dev), "batch": batch, "seq_len": seq_len,
-            "sequential_ms": t_seq * 1e3, "rows": rows, "sampler_kernel_launches": launches}
+    report = {"backend": backend(dev), "batch": batch, "seq_len": seq_len,
+              "sequential_ms": t_seq * 1e3, "rows": rows, "sampler_kernel_launches": launches}
+    if graphs is not None:
+        # Each k's replay on gen(0)'s draw against sweep k of the eager run.
+        report["replay_equals_eager"] = {k: bool(torch.equal(par_fn(k, 0), ests_dev[k - 1]))
+                                         for k in sweep_list}
+        print(f"replays equal to the eager run's sweeps, bit for bit: "
+              f"{report['replay_equals_eager']}")
+    return report
 
 
 if __name__ == "__main__":

@@ -159,13 +159,16 @@ def _retrieval_metrics(vecs: np.ndarray, labels: np.ndarray) -> dict:
 
 
 def style_vectors(extractor, imgs: np.ndarray, batch: int = 32) -> np.ndarray:
-    """[N, H, W] grey lines -> [N, 14 x 1280] float32 through `extractor`."""
+    """[N, H, W] grey lines -> [N, 14 x 1280] float32 through `extractor`'s
+    apply_fn (style_extractor.make_apply_fn: on CUDA a batch shape's calls
+    after its first replay a captured graph)."""
+    from dhg_torch.models.style_extractor import make_apply_fn
+
     dev = next(extractor.parameters()).device
-    out = []
-    with torch.inference_mode():
-        for lo in range(0, len(imgs), batch):
-            x = torch.from_numpy(np.ascontiguousarray(imgs[lo:lo + batch], np.float32)).to(dev)
-            out.append(extractor(x).reshape(x.shape[0], -1).cpu().numpy())
+    apply_fn, out = make_apply_fn(extractor), []
+    for lo in range(0, len(imgs), batch):
+        x = torch.from_numpy(np.ascontiguousarray(imgs[lo:lo + batch], np.float32)).to(dev)
+        out.append(apply_fn(x).reshape(x.shape[0], -1).cpu().numpy())
     return np.concatenate(out)
 
 
@@ -236,13 +239,14 @@ def style_ablation(experiment_path: str, width: int = 384,
     """Pairwise output MSE for writer-A / writer-B / zero style, shared noise."""
     from dhg_torch.tools.common import load_model
 
+    from dhg_torch.models.style_extractor import make_apply_fn
+
     dev = torch.device(device)
-    extractor = quiet_extractor(device=dev)
+    apply_fn = make_apply_fn(quiet_extractor(device=dev))
     model = load_model({"experiment_path": experiment_path}, dev)
 
     def style_of(img):
-        with torch.inference_mode():
-            return extractor(torch.from_numpy(img[None]).to(dev))
+        return apply_fn(torch.from_numpy(img[None]).to(dev))
 
     style_a, style_b = style_of(render_line(0, 7, width)), style_of(render_line(5, 7, width))
     outs = output_swap(model, {"A": style_a, "B": style_b, "zero": torch.zeros_like(style_a)},

@@ -17,7 +17,9 @@ statistics while conv kernels and BN affines train: the network inference
 runs. The image set is uploaded once as uint8 and indexed on the device;
 batch indices are uniform draws with replacement from a device generator
 seeded --seed (dhg's draws come from jax.random: the same distribution,
-other indices). float32, TF32 off.
+other indices), drawn on the host's side of each step. float32, TF32 off.
+dhg jits the step; on CUDA the port replays it from one captured CUDA
+graph (TrunkStep), equal bit for bit to the eager loop.
 
 Training data: render_line_fast's pseudo-handwriting lines, one bundle of
 parameters per writer (writer ids from 100, disjoint from eval_style_gap's
@@ -224,15 +226,51 @@ def make_optimizer(net: nn.Module, lr: float, steps: int):
                      clip=CLIP_NORM, clip_mode="norm")
 
 
-def train_step(net: TrunkClassifier, opt, x: torch.Tensor, y: torch.Tensor):
-    """One update on the float32 images x [B, H, W] and labels y [B]:
-    (cross-entropy, batch accuracy) before it, as device scalars."""
-    logits = net(x)
-    ce = nn.functional.cross_entropy(logits, y.long())
-    acc = (logits.argmax(-1) == y).float().mean()
-    grads = torch.autograd.grad(ce, opt.params)
-    opt.step(list(grads))
-    return ce.detach(), acc
+class TrunkStep:
+    """dhg's jitted step_fn past its index draw: `step(idx)` takes one update
+    on the batch idx [batch] (int64, on the device) of the uploaded set,
+    staging the optimizer's scalars (Optimizer.stage) on the host, and
+    returns [2] (cross-entropy, batch accuracy) before it. `body` is the
+    device work: the gather, the forward, the gradients and the update. On
+    CUDA the body is a core/graphs.py CapturedBody on a static idx buffer
+    (`graph`): the first step taken eagerly on a side stream, then
+    captured; later steps copy idx in and replay it, so every step equals
+    the eager loop's bit for bit. On the CPU each step runs the body."""
+
+    def __init__(self, net: TrunkClassifier, opt, imgs: torch.Tensor, labels: torch.Tensor):
+        self.net, self.opt, self.imgs, self.labels = net, opt, imgs, labels
+        self.graph = None  # the CapturedBody, on CUDA
+
+    def body(self, idx: torch.Tensor) -> torch.Tensor:
+        """The update on batch idx after its Optimizer.stage, device work
+        only. cuDNN's deterministic algorithms only (some of its conv
+        backward algorithms sum in no fixed order), so that every run of a
+        step, eager or replayed, gives the same bits."""
+        x, y = self.imgs[idx].float(), self.labels[idx]
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            logits = self.net(x)
+            ce = nn.functional.cross_entropy(logits, y)
+            acc = (logits.argmax(-1) == y).float().mean()
+            grads = torch.autograd.grad(ce, self.opt.params)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        self.opt.update(list(grads))
+        return torch.stack([ce.detach(), acc])
+
+    def __call__(self, idx: torch.Tensor) -> torch.Tensor:
+        if self.imgs.device.type != "cuda":
+            self.opt.stage()
+            return self.body(idx)
+        if self.graph is None:
+            from dhg_torch.core.graphs import CapturedBody
+
+            self.graph = CapturedBody(self.body, (idx.clone(),), (self.net,), self.imgs.device)
+        else:
+            self.graph.inputs[0].copy_(idx)
+        self.opt.stage()
+        return self.graph.run()
 
 
 def train(steps: int = 600, writers: int = 128, per_writer: int = 16, batch: int = 64,
@@ -240,7 +278,9 @@ def train(steps: int = 600, writers: int = 128, per_writer: int = 16, batch: int
           log_every: int = 50, tree: str | None = None, device: str | torch.device = "cuda",
           stats: dict | None = None) -> dict:
     """Build the training set, train, save; `stats` (if given) receives the
-    wall seconds of the set's build and of the steps, and steps/s."""
+    wall seconds of the set's build and of the steps, steps/s, and the host
+    seconds of the step's capture (None on the CPU). Each step is a
+    TrunkStep: on CUDA the first eager, the rest replays of its graph."""
     from dhg_torch import resolve_device
     from dhg_torch.tools.eval_style_gap import _retrieval_metrics, style_vectors
     from dhg_torch.weights import flat_from_style_state_dict
@@ -268,25 +308,28 @@ def train(steps: int = 600, writers: int = 128, per_writer: int = 16, batch: int
     imgs_dev = torch.from_numpy(imgs).to(dev)  # [N, H, W] uint8, one upload
     labels_dev = torch.from_numpy(labels.astype(np.int64)).to(dev)
     gen = torch.Generator(dev).manual_seed(seed)
+    step = TrunkStep(net, opt, imgs_dev, labels_dev)
 
-    ce = acc = torch.zeros(())
+    row = torch.zeros(2)
     t0 = time.time()
     for i in range(steps):
         idx = torch.randint(0, imgs_dev.shape[0], (batch,), generator=gen, device=dev)
-        ce, acc = train_step(net, opt, imgs_dev[idx].float(), labels_dev[idx])
+        row = step(idx)
         if (i + 1) % log_every == 0 or i == 0:
-            print(f"step {i + 1}/{steps} | ce {float(ce):.3f} | "
-                  f"batch acc {float(acc):.3f} | {time.time() - t0:.1f}s", flush=True)
+            print(f"step {i + 1}/{steps} | ce {float(row[0]):.3f} | "
+                  f"batch acc {float(row[1]):.3f} | {time.time() - t0:.1f}s", flush=True)
+    ce, acc = row.tolist()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     stats["train_s"] = time.time() - t0
     stats["steps_per_sec"] = steps / max(stats["train_s"], 1e-9)
+    stats["capture_s"] = None if step.graph is None else step.graph.capture_s
 
     out_path = Path(out if out is not None else DEFAULT_OUT)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(out_path, **flat_from_style_state_dict(net.extractor.state_dict()))
     print(f"saved trained trunk -> {out_path} ({out_path.stat().st_size / 1e6:.1f} MB)")
-    res = {"out": str(out_path), "final_ce": float(ce), "final_acc": float(acc),
+    res = {"out": str(out_path), "final_ce": ce, "final_acc": acc,
            "backend": backend(dev)}
     if holdout is not None:
         h_imgs, h_labels = holdout

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from dhg_torch import eval as eval_mod
+from dhg_torch.core import graphs as graphs_mod
 from dhg_torch.data.pipeline import synthetic_cache
 from dhg_torch.eval import EvalGraphs, eval_batch, eval_levels, evaluate, make_eval_fn
 from dhg_torch.models.denoiser import DiffusionModel
@@ -59,7 +59,7 @@ def test_cpu_step_is_eager_eval_batch(monkeypatch):
     def refused(*args, **kwargs):
         raise AssertionError("a graph was built on the CPU")
 
-    monkeypatch.setattr(eval_mod, "CapturedBody", refused)
+    monkeypatch.setattr(graphs_mod, "CapturedBody", refused)
     model = _model()
     strokes3, text, style = _batch(3)
     eps = torch.randn(strokes3[..., :2].shape, generator=torch.Generator().manual_seed(1))

@@ -10,10 +10,11 @@ cv2 renderer: ink coverage within 10%, >= 97% of pixels on the same side
 of grey 128. (d) warmup_cosine_decay against optax's at every count. (e)
 Three training steps of the port against dhg's loss_fn / optax chain
 (rebuilt here: they are closures in dhg) from the same weights on the same
-batches: CE per step within 1e-5 relative, features after within 1e-4; the
-saved .npz loads strict in dhg and gives its features within 1e-4. (f)
-build_tree_training_set against dhg's on a tiny generated tree. dhg's side
-runs under jax.jit, waited on before the port's work.
+batches, the port's steps taken by TrunkStep (the replayed step's body,
+eager on the CPU): CE per step within 1e-5 relative, features after within
+1e-4; the saved .npz loads strict in dhg and gives its features within
+1e-4. (f) build_tree_training_set against dhg's on a tiny generated tree.
+dhg's side runs under jax.jit, waited on before the port's work.
 """
 
 from pathlib import Path
@@ -239,33 +240,31 @@ def three_steps(tmp_path_factory):
         dhg_acc.append(float(acc))
     dhg_feats = np.asarray(jax.block_until_ready(feats))
 
-    # the port
+    # the port: TrunkStep (the replayed step's body, eager here) from the same weights
     extractor_t = init_style_extractor(SYNTH, device="cpu").requires_grad_(True)
     head_t = tst.Head(N_CLASSES)
     with torch.no_grad():
         head_t.cls.weight.copy_(torch.from_numpy(kernel.T))
         head_t.cls.bias.zero_()
     net = tst.TrunkClassifier(extractor_t, head_t).eval()
-    opt = tst.make_optimizer(net, LR, SCHEDULE_STEPS)
-    port_ce, port_acc = [], []
-    for idx in batches:
-        ce, acc = tst.train_step(net, opt, torch.from_numpy(imgs[idx].astype(np.float32)),
-                                 torch.from_numpy(labels[idx].astype(np.int64)))
-        port_ce.append(float(ce))
-        port_acc.append(float(acc))
+    step = tst.TrunkStep(net, tst.make_optimizer(net, LR, SCHEDULE_STEPS), torch.from_numpy(imgs),
+                         torch.from_numpy(labels.astype(np.int64)))
+    rows = [step(torch.from_numpy(idx.astype(np.int64))).tolist() for idx in batches]
     with torch.no_grad():
         port_feats = net.extractor(torch.from_numpy(probe)).numpy()
     from dhg_torch.weights import flat_from_style_state_dict
 
     saved = tmp_path_factory.mktemp("trunk") / "trunk.npz"
     np.savez_compressed(saved, **flat_from_style_state_dict(net.extractor.state_dict()))
-    return dict(dhg_ce=dhg_ce, dhg_acc=dhg_acc, dhg_feats=dhg_feats, port_ce=port_ce,
-                port_acc=port_acc, port_feats=port_feats, probe=probe, saved=saved,
-                template=variables, net=net)
+    return dict(dhg_ce=dhg_ce, dhg_acc=dhg_acc, dhg_feats=dhg_feats,
+                port_ce=[r[0] for r in rows], port_acc=[r[1] for r in rows],
+                port_feats=port_feats, probe=probe, saved=saved, template=variables, net=net,
+                step_graph=step.graph)
 
 
 def test_three_train_steps_match_dhg(three_steps):
     r = three_steps
+    assert r["step_graph"] is None  # no graph on the CPU: the body, eagerly
     np.testing.assert_allclose(r["port_ce"], r["dhg_ce"], rtol=1e-5)
     assert r["port_acc"] == r["dhg_acc"]
     assert np.abs(r["port_feats"] - r["dhg_feats"]).max() <= 1e-4

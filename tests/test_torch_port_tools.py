@@ -110,8 +110,10 @@ def test_profile_stages_cli(monkeypatch):
     monkeypatch.setattr(profile_stages, "ITERS", 1)
     report = profile_stages.main(["--device=cpu", "--batch=2", "--prompt_len=1"])
     stages = {"full", "enc1", "enc2_enc3", "enc4_enc5", "att_stack", "decoder"}
-    assert set(report) == dhg_keys("profile_stages", "profile") - stages | {"kernels"}
+    assert set(report) == dhg_keys("profile_stages", "profile") - stages | {
+        "kernels", "eager_ms_per_step"}
     assert set(report["ms_per_step"]) == set(report["kernels"]) == stages
+    assert report["eager_ms_per_step"] == report["ms_per_step"]  # no graph on the CPU
     assert set(report["pct_of_full"]) == stages - {"full"}
     assert all(v > 0 for v in report["ms_per_step"].values())
     assert all(k == {} for k in report["kernels"].values())  # no kernel on the CPU
